@@ -1,12 +1,14 @@
 """ccrs_tpu_torch — the PyTorch/CUDA port of ``ccrs_tpu``.
 
 A second package beside the JAX reference: the same camera-intrinsic
-calibration system (AprilGrid detection, UCM/EUCM models, RANSAC + PnP
-initialization, Schur-structured Levenberg–Marquardt bundle adjustment),
-written as plain torch functions on tensors and run on an NVIDIA Hopper
-GPU.  The detector's adaptive threshold runs as a hand-written CUDA kernel
-(``csrc/threshold.cu``, bound in ``ops/threshold_cuda.py``); every other
-stage is torch code that runs on whatever device its input tensors live on.
+calibration system (AprilGrid detection, the six camera models, RANSAC +
+PnP initialization, Schur-structured Levenberg–Marquardt bundle adjustment,
+the joint multi-camera solve and the ``ccrs`` CLI, ``python -m
+ccrs_tpu_torch``), written as plain torch functions on tensors and run on
+an NVIDIA Hopper GPU.  The detector's adaptive threshold runs as a
+hand-written CUDA kernel (``csrc/threshold.cu``, bound in
+``ops/threshold_cuda.py``); every other stage is torch code that runs on
+whatever device its input tensors live on.
 
 The package never imports jax or ``ccrs_tpu``: framework-free modules are
 copied, and the tag-family table is read by file path.

@@ -149,14 +149,24 @@ def calibrate_camera_with_retries(
             device=device,
         )
         if result is not None:
+            calibrate_camera_with_retries.last_init_frames = attempt.get("init_frames")
             return result
         gated = attempt.get("gated")
         if gated is not None and (best_gated is None or gated[0] < best_gated[0]):
-            best_gated = gated
+            # keep the trial's init frames with the attempt: the keyframe
+            # markers must describe the attempt actually returned
+            best_gated = gated + (attempt.get("init_frames"),)
     if best_gated is not None:
         log.warning(
             "all %d trials failed the sanity gate; returning the best "
             "attempt (median %.2f px)", MAX_TRIALS, best_gated[0],
         )
+        calibrate_camera_with_retries.last_init_frames = best_gated[2]
         return best_gated[1]
     raise RuntimeError(f"Failed to calibrate camera after {MAX_TRIALS} trials")
+
+
+# the keyframes (two init frames) of the attempt the ladder last returned,
+# read by the CLI's Rerun markers; the ladder runs on the caller's thread,
+# one camera after another
+calibrate_camera_with_retries.last_init_frames = None

@@ -49,9 +49,12 @@ def validation(
     batch: FrameBatch,
     model: GenericModel,
     rtvecs: Dict[int, RvecTvec],
+    recorder=None,
+    cam_idx: int = 0,
 ) -> Tuple[float, float]:
     """(avg of best 99%, median) reprojection error in pixels
-    (``src/util.rs:778-795``)."""
+    (``src/util.rs:778-795``); ``recorder`` (a ``visualization.Recorder``)
+    logs the per-point errors under ``/cam{cam_idx}``."""
     per_frame = reprojection_errors(board, batch, model, rtvecs)
     errs = np.concatenate([e for _, e, _ in per_frame]) if per_frame else np.array([0.0])
     print(f"total pts: {errs.size}")
@@ -61,4 +64,6 @@ def validation(
     avg99 = float(errs_sorted[:n99].sum() / max(n99, 1))
     print(f"Median reprojection error: {median} px")
     print(f"Avg reprojection error of 99%: {avg99} px")
+    if recorder is not None:
+        recorder.log_validation(cam_idx, batch, board, model, rtvecs, per_frame)
     return avg99, median

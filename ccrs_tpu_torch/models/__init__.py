@@ -1,4 +1,4 @@
-"""Camera model library: UCM/EUCM project/unproject as torch functions."""
+"""Camera model library: the six models' project/unproject as torch functions."""
 
 from .base import (
     MODEL_NAMES,

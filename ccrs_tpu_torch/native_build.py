@@ -16,7 +16,8 @@ import threading
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
-_lock = threading.Lock()
+_locks: dict = {}  # one lock per library: different libraries build in parallel
+_locks_guard = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -37,7 +38,9 @@ def nvcc_path() -> str:
 def ensure_built(so_path: str, sources, cmd) -> str:
     """Run ``cmd`` (which writes ``so_path``) unless the library exists and
     is newer than every source.  Returns ``so_path``."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(so_path, threading.Lock())
+    with lock:
         if os.path.exists(so_path) and all(
             os.path.getmtime(so_path) >= os.path.getmtime(s) for s in sources
         ):

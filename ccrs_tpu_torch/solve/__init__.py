@@ -9,7 +9,9 @@ from .homography import (
 from .lm import (
     BAResult,
     LMOptions,
+    MultiBAResult,
     ba_solve,
+    ba_solve_multi,
     expand_theta,
     lm_solve,
     reduce_params,
@@ -23,7 +25,9 @@ __all__ = [
     "radial_distortion_homography",
     "BAResult",
     "LMOptions",
+    "MultiBAResult",
     "ba_solve",
+    "ba_solve_multi",
     "expand_theta",
     "lm_solve",
     "reduce_params",

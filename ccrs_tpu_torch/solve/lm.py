@@ -18,8 +18,10 @@ to the host once.  Cholesky factorizations of matrices that are not
 positive definite yield NaN (``cholesky_nan``), as ``jnp.linalg.cholesky``
 does, and the LM rejects such steps through its finiteness guard.
 
-The mixed-precision and multi-camera solvers of the JAX package are not
-ported yet (ROADMAP A.8, A.9).
+``ba_solve_multi`` is the joint multi-camera solve.  The mixed-precision
+solvers of the JAX package (``ba_solve_mixed``, ``ba_solve_multi_mixed``)
+are not ported (ROADMAP A.8): their float32 stage exists for the TPU's
+emulated float64, and the port solves in float64 throughout.
 """
 
 from __future__ import annotations
@@ -325,3 +327,197 @@ def ba_solve(
         if bool(converged | stall):
             break
     return BAResult(theta, poses, cost, it)
+
+
+# --------------------------------------------------------------------------
+# multi-camera joint bundle adjustment
+# --------------------------------------------------------------------------
+
+
+class MultiBAResult(NamedTuple):
+    theta: torch.Tensor  # (C, k)
+    ext: torch.Tensor  # (C, 6) T_cam_i<-cam0 (row 0 pinned identity)
+    poses: torch.Tensor  # (F, 6) board->cam0
+    cost: torch.Tensor
+    n_iters: int
+
+
+def ba_solve_multi(
+    project_fn,
+    theta0,
+    ext0,
+    poses0,
+    p3d,
+    p2d,
+    w,
+    lo,
+    hi,
+    free,
+    cam_frame_valid,
+    frame_valid,
+    one_focal: bool = False,
+    max_iters: int = 60,
+    huber_delta: float = 1.0,
+    rtol: float = 1e-14,
+) -> MultiBAResult:
+    """Joint multi-camera BA: per-camera intrinsics + camera extrinsics
+    (T_i_0) + shared board poses (T_0_b per frame).
+
+    Replaces ``calib_all_camera_with_extrinsics`` (src/util.rs:567-715):
+    cam0 observations constrain (theta_0, T_0_b); cam i>0 observations
+    constrain (theta_i, T_i_0, T_0_b) through the chained transform
+    T_i_0 * T_0_b (the OtherCamReprojectionFactor, factors.rs:204-228).
+    Board poses are Schur-eliminated (F independent 6x6 blocks); the
+    reduced system is (C*k + 6C) dense, solved by Cholesky.
+
+    The port solves in float64 from the first iteration, where
+    ``ccrs_tpu`` runs ``ba_solve_multi_mixed`` (a float32 descent, then a
+    float64 polish); both stop at the same float64 optimum.
+
+    Args:
+      theta0: (C, k) reduced intrinsics per camera.
+      ext0: (C, 6) extrinsics rvec|tvec; row 0 must be zeros (pinned).
+      poses0: (F, 6) board->cam0 poses.
+      p2d/w: (C, F, N, 2) observations and (C, F, N) weights.
+      lo/hi/free: (C, k) per-camera bounds/free masks on theta.
+      cam_frame_valid: (C, F) camera c contributes frame f.
+      frame_valid: (F,) frame participates at all.
+    """
+    C, F, N, _ = p2d.shape
+    k = theta0.shape[1]
+    dtype, dev = theta0.dtype, theta0.device
+    M = C * k + C * 6
+    opts = LMOptions(max_iters=max_iters, huber_delta=huber_delta, rtol=rtol)
+    w = w * cam_frame_valid[:, :, None] * frame_valid[None, :, None]
+
+    # e_0 is pinned to identity; its columns get a unit diagonal below
+    ext_free = torch.cat(
+        [torch.zeros((1, 6), dtype=dtype, device=dev),
+         torch.ones((C - 1, 6), dtype=dtype, device=dev)], dim=0,
+    )
+
+    def cam0_residual(theta_c, e_c, pose_f, p2d_cf):
+        params = expand_theta(theta_c, one_focal)
+        pc = se3.transform(pose_f[:3], pose_f[3:], p3d)
+        proj, _ = project_fn(params, pc)
+        return proj - p2d_cf
+
+    def cam_i_residual(theta_c, e_c, pose_f, p2d_cf):
+        params = expand_theta(theta_c, one_focal)
+        rvc, tvc = se3.compose(e_c[:3], e_c[3:], pose_f[:3], pose_f[3:])
+        pc = se3.transform(rvc, tvc, p3d)
+        proj, _ = project_fn(params, pc)
+        return proj - p2d_cf
+
+    def with_aux(f):
+        def r_aux(*args):
+            r = f(*args)
+            return r, r
+
+        return r_aux
+
+    # the camera split is static: cam 0 sees the board pose directly, cams
+    # >= 1 through their extrinsic (a Python-level choice, never a
+    # data-dependent branch)
+    fns = [cam0_residual] + [cam_i_residual] * (C - 1)
+    residuals = [vmap(f, in_dims=(None, None, 0, 0)) for f in fns]
+    jacobians = [
+        vmap(jacfwd(with_aux(f), argnums=(0, 1, 2), has_aux=True),
+             in_dims=(None, None, 0, 0))
+        for f in fns
+    ]
+
+    def cost_of(theta, ext, poses):
+        total = torch.zeros((), dtype=dtype, device=dev)
+        for c in range(C):
+            r = residuals[c](theta[c], ext[c], poses, p2d[c])
+            r2 = torch.sum(r * r, dim=-1)
+            total = total + torch.sum(w[c] * huber_cost(r2, huber_delta))
+        return total
+
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    fv = frame_valid[:, None, None] > 0
+    full_free = torch.cat([free.reshape(-1), ext_free.reshape(-1)])
+    unit_fixed = torch.diag(1.0 - full_free)
+
+    theta = torch.clamp(theta0, lo, hi)
+    ext = ext0
+    poses = poses0
+    lam = torch.tensor(opts.lam0, dtype=dtype, device=dev)
+    cost = cost_of(theta, ext, poses)
+    rej = torch.zeros((), dtype=torch.int64, device=dev)
+    acc_any = torch.zeros((), dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_iters:
+        U = torch.zeros((M, M), dtype=dtype, device=dev)
+        g_x = torch.zeros((M,), dtype=dtype, device=dev)
+        A = torch.zeros((F, 6, 6), dtype=dtype, device=dev)
+        B = torch.zeros((F, M, 6), dtype=dtype, device=dev)
+        g_p = torch.zeros((F, 6), dtype=dtype, device=dev)
+        for c in range(C):
+            (Jt, Je, Jp), r = jacobians[c](theta[c], ext[c], poses, p2d[c])
+            Jt = Jt * free[c]
+            Je = Je * ext_free[c]
+            r2 = torch.sum(r * r, dim=-1)
+            wt = w[c] * huber_block_weight(r2, huber_delta)  # (F, N)
+
+            ti = c * k
+            ei = C * k + c * 6
+            Ute = torch.einsum("fnri,fnrj,fn->ij", Jt, Je, wt)
+            U[ti : ti + k, ti : ti + k] += torch.einsum("fnri,fnrj,fn->ij", Jt, Jt, wt)
+            U[ei : ei + 6, ei : ei + 6] += torch.einsum("fnri,fnrj,fn->ij", Je, Je, wt)
+            U[ti : ti + k, ei : ei + 6] += Ute
+            U[ei : ei + 6, ti : ti + k] += Ute.T
+            g_x[ti : ti + k] += torch.einsum("fnri,fnr,fn->i", Jt, r, wt)
+            g_x[ei : ei + 6] += torch.einsum("fnri,fnr,fn->i", Je, r, wt)
+            A += torch.einsum("fnri,fnrj,fn->fij", Jp, Jp, wt)
+            B[:, ti : ti + k, :] += torch.einsum("fnri,fnrj,fn->fij", Jt, Jp, wt)
+            B[:, ei : ei + 6, :] += torch.einsum("fnri,fnrj,fn->fij", Je, Jp, wt)
+            g_p += torch.einsum("fnri,fnr,fn->fi", Jp, r, wt)
+        U = U + unit_fixed
+
+        Ud = _damped(U, lam)
+        Ad = torch.where(fv, _damped(A, lam), eye6)
+        sol = cholesky_solve_batched_small(
+            Ad, torch.cat([B.mT, g_p[..., None]], dim=2)
+        )
+        Ainv_Bt = sol[..., :-1]  # (F, 6, M)
+        Ainv_g = sol[..., -1]
+        S = Ud - torch.einsum("fij,fjk->ik", B, Ainv_Bt)
+        rhs = -(g_x - torch.einsum("fik,fi->k", Ainv_Bt, g_p))
+        # Jacobi-scale the reduced solve: parameter magnitudes span ~1e5
+        # (focal vs distortion vs extrinsic rotation); D S D has a unit
+        # diagonal and solves identically
+        d = torch.sqrt(torch.clamp(torch.diagonal(S), min=1e-12))
+        Sn = S / d[:, None] / d[None, :]
+        dx = cholesky_solve_batched_small(Sn, rhs / d) / d
+        dpo = -(Ainv_g + torch.einsum("fim,m->fi", Ainv_Bt, dx))
+        dx = _finite_or_zero(dx)
+        dpo = _finite_or_zero(dpo)
+        th_new = torch.clamp(theta + dx[: C * k].reshape(C, k) * free, lo, hi)
+        ex_new = ext + dx[C * k :].reshape(C, 6) * ext_free
+        po_new = poses + dpo * frame_valid[:, None]
+
+        c_new = cost_of(th_new, ex_new, po_new)
+        accept = c_new < cost
+        theta = torch.where(accept, th_new, theta)
+        ext = torch.where(accept, ex_new, ext)
+        poses = torch.where(accept, po_new, poses)
+        lam = torch.clamp(
+            torch.where(accept, lam * opts.lam_down, lam * opts.lam_up),
+            opts.lam_min, opts.lam_max,
+        )
+        # stop on a tiny relative decrease OR a vanished gradient (large
+        # joint problems keep finding micro-improvements at the noise floor)
+        rel_small = cost - c_new <= opts.rtol * torch.clamp(cost, min=1e-300)
+        gsmall = torch.max(torch.abs(g_x)) <= 1e-9 * torch.clamp(cost, min=1.0)
+        converged = (accept & rel_small) | gsmall
+        cost = torch.where(accept, c_new, cost)
+        rej = torch.where(accept, torch.zeros_like(rej), rej + 1)
+        acc_any = acc_any | accept
+        limit = torch.where(acc_any, opts.max_rejects, 3 * opts.max_rejects)
+        stall = (rej >= limit) & (lam >= opts.stall_lam)
+        it += 1
+        if bool(converged | stall):
+            break
+    return MultiBAResult(theta, ext, poses, cost, it)

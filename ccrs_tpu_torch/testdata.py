@@ -1,11 +1,13 @@
-"""Synthetic AprilGrid frame renderer.
+"""Synthetic AprilGrid dataset renderer.
 
-Port of the renderer of ``ccrs_tpu/testdata.py`` that the benchmark
-composition uses: every output pixel is inverse-mapped through the camera
-model onto the board plane (3x3 supersampled), blurred by a Gaussian PSF,
-given sensor noise and quantized to uint8 — on the device the frames are
-then detected on.  Poses are generated with numpy on the host, so a seed
-gives the same trajectory in both packages.
+Port of ``ccrs_tpu/testdata.py``: every output pixel is inverse-mapped
+through the camera model onto the board plane (3x3 supersampled), blurred
+by a Gaussian PSF, given sensor noise and quantized to uint8 — on the
+device the frames are then detected on.  Poses are generated with numpy on
+the host, so a seed gives the same trajectory in both packages.
+``write_euroc_dataset`` materializes a EuRoC-layout dataset on disk (PNG
+through :mod:`ccrs_tpu_torch.pngio`) for CLI runs; ``python -m
+ccrs_tpu_torch.testdata <dir>`` writes one.
 
 Ground truth: the rendered corner positions are exactly
 ``project(params, T_cam_board . p3d_corner)`` (``gt_corners``).
@@ -13,14 +15,18 @@ Ground truth: the rendered corner positions are exactly
 
 from __future__ import annotations
 
+import concurrent.futures as cf
+import os
+
 import numpy as np
 import torch
 
-from .board import Board
-from .detect.families import TagFamily
+from .board import Board, BoardConfig
+from .detect.families import TagFamily, get_family
 from .models import GenericModel
 from .models.projections import unproject_fn
 from .solve import se3
+from .utils.profiling import stage
 
 F64 = torch.float64
 #: frames rendered per supersampling pass (bounds its memory: ~16 x 9 x H x W
@@ -283,3 +289,114 @@ def smooth_sequence_poses(
         tv = (1 - t) * keys[k, 3:] + t * keys[k + 1, 3:]
         poses.append(np.concatenate([slerp(k + t).as_rotvec(), tv]))
     return np.stack(poses)
+
+
+def write_euroc_dataset(
+    out_dir: str,
+    model: GenericModel,
+    n_frames: int = 40,
+    cam_num: int = 1,
+    extrinsics=None,
+    board: Board = None,
+    family: TagFamily = None,
+    seed: int = 0,
+    noise: float = 2.0,
+    span_scale: float = 1.0,
+    device="cpu",
+):
+    """Materialize a EuRoC-layout dataset ({root}/mav0/cam{i}/data/*.png) of
+    rendered frames; returns (poses (F,6), model).
+
+    Frames are rendered on ``device`` (camera i's sensor noise drawn from a
+    ``torch.Generator`` seeded ``seed * 1000 + i``) and written as 8-bit
+    gray PNGs on a thread pool.  Board poses come from
+    ``default_sequence_poses(n_frames, board, seed, span_scale)``; camera
+    i > 0 sees them through ``extrinsics[i]`` (T_cam_i<-cam0), by default
+    ``default_rig_extrinsics(cam_num)``.
+    """
+    from .pngio import write_png
+
+    board = board or Board(BoardConfig())
+    family = family or get_family("t36h11")
+    poses = default_sequence_poses(n_frames, board, seed=seed, span_scale=span_scale)
+    if cam_num > 1 and extrinsics is None:
+        extrinsics = default_rig_extrinsics(cam_num)
+    with cf.ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        for ci in range(cam_num):
+            d = os.path.join(out_dir, "mav0", f"cam{ci}", "data")
+            os.makedirs(d, exist_ok=True)
+            cam_poses = torch.as_tensor(poses, dtype=F64)
+            if extrinsics is not None and ci > 0:
+                e = torch.as_tensor(np.asarray(extrinsics[ci]), dtype=F64)
+                rv, tv = se3.compose(
+                    e[:3].expand(n_frames, 3), e[3:].expand(n_frames, 3),
+                    cam_poses[:, :3], cam_poses[:, 3:],
+                )
+                cam_poses = torch.cat([rv, tv], dim=1)
+            gen = torch.Generator(device=device).manual_seed(seed * 1000 + ci)
+            with stage("render"):
+                imgs = render_frames_device(
+                    model, board, family, cam_poses.numpy(), noise=noise,
+                    generator=gen if noise > 0 else None, device=device,
+                ).cpu().numpy()
+            with stage("png_write"):
+                futures = [
+                    pool.submit(
+                        write_png,
+                        os.path.join(d, f"{10_000_000_000 + f * 100_000_000}.png"),
+                        imgs[f],
+                    )
+                    for f in range(n_frames)
+                ]
+                for fut in futures:
+                    fut.result()
+    return poses, model
+
+
+def default_rig_extrinsics(cam_num: int):
+    """T_cam_i<-cam0 for a simple horizontal rig (11 cm baseline steps,
+    slight convergence), row 0 identity; rows are (rvec|tvec)."""
+    out = [np.zeros(6)]
+    for i in range(1, cam_num):
+        out.append(
+            np.array([0.0, -0.02 * i, 0.005 * i, -0.11 * i, 0.002 * i, 0.004 * i])
+        )
+    return np.stack(out)
+
+
+def _main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="render a synthetic EuRoC dataset")
+    ap.add_argument("out_dir")
+    ap.add_argument("--frames", type=int, default=40)
+    ap.add_argument("--cam-num", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument(
+        "--platform",
+        default="auto",
+        choices=["auto", "cpu", "cuda"],
+        help="device to render on (auto = cuda when a card is present)",
+    )
+    args = ap.parse_args(argv)
+    if args.platform == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--platform cuda: no CUDA device available")
+    cuda = args.platform == "cuda" or (
+        args.platform == "auto" and torch.cuda.is_available()
+    )
+    model = GenericModel(
+        "eucm", [190.9, 190.87, 254.94, 256.86, 0.628, 1.046], 512, 512
+    )
+    write_euroc_dataset(
+        os.path.join(args.out_dir, "dataset"),
+        model,
+        n_frames=args.frames,
+        cam_num=args.cam_num,
+        seed=args.seed,
+        device="cuda" if cuda else "cpu",
+    )
+    print(f"wrote {args.frames} frames to {args.out_dir}/dataset (EuRoC layout)")
+
+
+if __name__ == "__main__":
+    _main()

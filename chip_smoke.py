@@ -7,18 +7,32 @@ user calls, at the benchmark's sizes:
 - phase 512: 534 rendered 512x512 uint8 frames of a TUM-VI-like EUCM
   camera (the regime of the TUM-VI ``dataset-calib-cam1`` recording);
 - phase 1024: 128 frames at 1024x1024 with the intrinsics scaled by 2,
-  which runs the scale-2 pyramid branch of the threshold kernel.
+  which runs the scale-2 pyramid branch of the threshold kernel;
+- phase cli: the user's entry point.  A stereo EuRoC-layout dataset (2
+  cameras x 640 frames at 752x480, EuRoC's cam0 UCM written as EUCM with
+  beta = 1, the 11 cm rig of ``default_rig_extrinsics(2)``) is rendered on
+  the card and written as PNG, then ``ccrs_tpu_torch.cli.main`` runs on it
+  in-process with ``--platform cuda`` (PNG decode + upload, detection,
+  per-camera calibration, joint BA, validation, artifacts; the default
+  ``--max-images 600`` truncates after detection).
 
-Each phase runs ``TagDetector.detect_batch`` -> ``FrameBatch.from_detections``
--> ``calibrate_camera_with_retries`` -> ``validation`` on the card and
-gates the result: focal error < 1%, median reprojection < 0.3 px, and a
-float64 re-solve on the CPU from the card's result must give the same RMS
-within 1e-6 px.  The threshold kernel is then held bit for bit against its
-plain torch version on every frame, both are timed, and the decode's tag
-ids are checked against a CPU run of the same frames.
+Phases 512 and 1024 run ``TagDetector.detect_batch`` ->
+``FrameBatch.from_detections`` -> ``calibrate_camera_with_retries`` ->
+``validation`` on the card and gate the result: focal error < 1%, median
+reprojection < 0.3 px, and a float64 re-solve on the CPU from the card's
+result must give the same RMS within 1e-6 px.  The cli phase gates fx
+within 1% for both cameras, each median of ``report.txt`` below 0.3 px,
+the extrinsic within 2e-3 of the rig, and a CPU float64 re-solve of the
+joint BA from the card's result at the same RMS within 1e-6 px.  In every
+phase the threshold kernel is held bit for bit against its plain torch
+version on every frame (for cli: every decoded frame of both cameras) and
+both are timed, and phases 512/1024 check the decode's tag ids against a
+CPU run of the same frames.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (builds the CUDA
-kernel and the host quad extractor into ``ccrs_tpu_torch/_build/``).
+kernel, the host quad extractor and the PNG unfilter routine into
+``ccrs_tpu_torch/_build/``; the cli phase's dataset lives in a temporary
+directory that is removed at the end).
 Prints a JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failed phase, and
 when no CUDA device is available.
@@ -26,8 +40,11 @@ when no CUDA device is available.
 
 import contextlib
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +54,12 @@ N_1024 = 128
 GT_512 = [190.9, 190.87, 254.94, 256.86, 0.628, 1.046]
 SEED = 11
 TIMING_REPS = 10
+N_CLI = 640
+#: EuRoC cam0 (the reference example's UCM) written as EUCM with beta = 1
+EUROC_CAM0 = [471.019, 470.243, 367.122, 246.741, 0.67485, 1.0]
+#: pose spread of the cli dataset; at this scale 96% of the frames keep
+#: >= 24 detected corners on the card (the phase fails below 80%)
+SPAN_CLI = 1.5
 
 
 def card_label() -> str:
@@ -184,7 +207,7 @@ def check_kernel(frames, scale, card):
     from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
 
     B, H, W = frames.shape
-    tag = f"[{H}] ({card})"
+    tag = f"[{H}x{W}] ({card})"
     max_err = 0
     for lo in range(0, B, CHUNK):
         part = frames[lo : lo + CHUNK].contiguous()
@@ -209,6 +232,138 @@ def check_kernel(frames, scale, card):
     return max_err, ms, plain_ms
 
 
+@contextlib.contextmanager
+def observe_joint_solve(cli):
+    """Record the arguments and result of the CLI's joint solve (the call
+    still runs as the user's run makes it)."""
+    real = cli.calib_all_camera_with_extrinsics
+    seen = {}
+
+    def wrapper(*args, **kwargs):
+        seen["args"], seen["kwargs"] = args, kwargs
+        seen["result"] = real(*args, **kwargs)
+        return seen["result"]
+
+    cli.calib_all_camera_with_extrinsics = wrapper
+    try:
+        yield seen
+    finally:
+        cli.calib_all_camera_with_extrinsics = real
+
+
+def run_cli_phase(card):
+    """Render + write the stereo dataset, run the CLI on it, gate the
+    artifacts, and re-solve the joint BA on the CPU from the card's result.
+    Returns (decoded frames per camera, threshold launches of the CLI run)."""
+    from ccrs_tpu_torch import cli
+    from ccrs_tpu_torch.calib.multi import calib_all_camera_with_extrinsics
+    from ccrs_tpu_torch.calib.validate import reprojection_errors
+    from ccrs_tpu_torch.dataloader import _list_images
+    from ccrs_tpu_torch.io import object_from_json
+    from ccrs_tpu_torch.models import GenericModel, model_from_json
+    from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
+    from ccrs_tpu_torch.pngio import read_png
+    from ccrs_tpu_torch.testdata import default_rig_extrinsics, write_euroc_dataset
+    from ccrs_tpu_torch.types import RvecTvec
+    from ccrs_tpu_torch.utils import profiling
+
+    tag = f"[cli 2x{N_CLI}x752x480] ({card})"
+    gt = GenericModel("eucm", EUROC_CAM0, 752, 480)
+    rig = default_rig_extrinsics(2)
+    profiling.enable()
+    with tempfile.TemporaryDirectory(prefix="ccrs_chip_smoke_") as tmp:
+        ds, out = os.path.join(tmp, "dataset"), os.path.join(tmp, "out")
+        profiling.reset()
+        write_euroc_dataset(
+            ds, gt, n_frames=N_CLI, cam_num=2, extrinsics=rig, seed=SEED,
+            noise=1.5, span_scale=SPAN_CLI, device="cuda",
+        )
+        stages = profiling.totals()
+        profiling.reset()
+        threshold_front_cuda.launches = 0  # count the CLI run's launches only
+        cwd = os.getcwd()
+        os.chdir(tmp)  # default_board_config.json goes to the cwd
+        try:
+            with observe_joint_solve(cli) as seen:
+                # the CLI ends on host data (artifacts), so the card is idle
+                # when it returns
+                t0 = time.perf_counter()
+                cli.main([
+                    ds, "--model", "eucm", "--cam-num", "2", "--platform", "cuda",
+                    "--no-rerun", "--seed", "1", "-o", out,
+                ])
+                t_cli = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        launches = threshold_front_cuda.launches
+        stages.update(profiling.totals())
+        print(f"{tag} cli.main {t_cli:.3f} s; stage wall times:")
+        for name, sec in stages.items():
+            print(f"{tag}   {name:24s} {sec:8.3f} s")
+        print(f"{tag} threshold kernel launches in the CLI run: {launches}")
+
+        fx, medians = [], []
+        for c in range(2):
+            m = model_from_json(os.path.join(out, f"cam{c}.json"))
+            fx.append(abs(m.params[0] - gt.params[0]) / gt.params[0])
+            print(f"{tag} cam{c} {m.name} {np.array2string(m.params, precision=6)}")
+        with open(os.path.join(out, "report.txt")) as f:
+            report = f.read()
+        medians = [float(v) for v in re.findall(r"median  reprojection error: ([0-9.]+) px", report)]
+        ext = RvecTvec.from_json(object_from_json(os.path.join(out, "extrinsics.json"))["rtvecs"][1])
+        ext_err = float(np.abs(np.concatenate([ext.rvec, ext.tvec]) - rig[1]).max())
+        print(
+            f"{tag} focal err {[f'{e:.4%}' for e in fx]}, medians {medians} px, "
+            f"extrinsic max err {ext_err:.2e}"
+        )
+        if not (len(fx) == 2 and max(fx) < 0.01):
+            raise RuntimeError(f"{tag} focal off by {fx}")
+        if not (len(medians) == 2 and max(medians) < 0.3):
+            raise RuntimeError(f"{tag} medians {medians} px")
+        if not (ext_err < 2e-3):
+            raise RuntimeError(f"{tag} extrinsic off the rig by {ext_err:.2e}")
+
+        # interchange gate: a float64 joint re-solve on the CPU from the
+        # card's result (same observations and frame sets) lands on the
+        # same optimum
+        board, _, _, rt_in, batches = seen["args"][:5]
+        models, t_i_0, board_rt = seen["result"]
+        usable = [float(b.frame_ok().mean()) for b in batches]
+        print(f"{tag} usable frames (>= 24 corners): {usable}")
+        if not min(usable) >= 0.8:
+            raise RuntimeError(f"{tag} too few usable frames: {usable}")
+
+        def rms(ms, t, brt):
+            out_rms = []
+            for c in range(len(ms)):
+                rt = {f: t[c].compose(p) for f, p in brt.items()}
+                errs = np.concatenate([e for _, e, _ in reprojection_errors(board, batches[c], ms[c], rt)])
+                out_rms.append(float(np.sqrt(np.mean(errs**2))))
+            return out_rms
+
+        card_rt = [{f: t_i_0[c].compose(board_rt[f]) for f in rt_in[c]} for c in range(2)]
+        t1 = time.perf_counter()
+        cpu = calib_all_camera_with_extrinsics(
+            board, models, t_i_0, card_rt, batches, **seen["kwargs"] | {"device": "cpu"}
+        )
+        if cpu is None:
+            raise RuntimeError(f"{tag} CPU float64 joint re-solve failed")
+        rms_card, rms_cpu = rms(models, t_i_0, board_rt), rms(*cpu)
+        drift = max(abs(a - b) for a, b in zip(rms_card, rms_cpu))
+        print(
+            f"{tag} CPU float64 joint re-solve: rms card {rms_card} px, "
+            f"|rms_card - rms_cpu| = {drift:.3e} px ({time.perf_counter() - t1:.1f} s)"
+        )
+        if not (drift < 1e-6):
+            raise RuntimeError(f"{tag} float64 interchange drift {drift:.3e} px")
+
+        frames = []
+        for c in range(2):
+            paths = _list_images(os.path.join(ds, "mav0", f"cam{c}", "data", "*"), 0, 1)
+            frames.append(np.stack([read_png(p) for p in paths]))
+    return frames, launches
+
+
 def main() -> int:
     import torch
 
@@ -221,25 +376,39 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}"
     )
+    import concurrent.futures as cf
+
+    from ccrs_tpu_torch import pngio
     from ccrs_tpu_torch.detect import quads
     from ccrs_tpu_torch.detect.detector import CHUNK
     from ccrs_tpu_torch.ops import threshold_cuda
 
-    t0 = time.perf_counter()
-    threshold_cuda.build()
-    t1 = time.perf_counter()
-    quads.build()
-    t2 = time.perf_counter()
-    print(
-        f"built libccrs_kernels.so (nvcc sm_90a) in {t1 - t0:.1f} s, "
-        f"libquadproc.so (g++) in {t2 - t1:.1f} s"
-    )
+    def timed_build(build):
+        t0 = time.perf_counter()
+        path = build()
+        return os.path.basename(path), time.perf_counter() - t0
+
+    # one compiler per source, all started together
+    with cf.ThreadPoolExecutor(max_workers=3) as pool:
+        builds = [pool.submit(timed_build, b)
+                  for b in (threshold_cuda.build, quads.build, pngio.build)]
+        built = [f.result() for f in builds]
+    print("built " + ", ".join(f"{name} in {sec:.1f} s" for name, sec in built)
+          + " (nvcc sm_90a / g++, in parallel)")
 
     frames, scale, launches512 = run_phase(512, N_512, card)
     err512, ms512, plain512 = check_kernel(frames, scale, card)
     del frames
     frames, scale, launches1024 = run_phase(1024, N_1024, card)
     err1024, ms1024, plain1024 = check_kernel(frames, scale, card)
+    del frames
+    cli_frames, launches_cli = run_cli_phase(card)
+    if launches_cli <= 0:
+        raise RuntimeError("the CLI run never launched the threshold kernel")
+    err_cli, ms_cli, plain_cli = 0, 0.0, 0.0
+    for cam_frames in cli_frames:  # every decoded frame of both cameras
+        e, ms, plain = check_kernel(torch.as_tensor(cam_frames).cuda(), 1, card)
+        err_cli, ms_cli, plain_cli = max(err_cli, e), ms_cli + ms, plain_cli + plain
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [{
@@ -247,14 +416,18 @@ def main() -> int:
         "route": "cuda",
         "source": "ccrs_tpu_torch/csrc/threshold.cu",
         "replaces": "ccrs_tpu/ops/threshold_pallas.py:35",
-        "launches": launches512 + launches1024,
-        "max_abs_err": max(err512, err1024),
+        "launches": launches512 + launches1024 + launches_cli,
+        "max_abs_err": max(err512, err1024, err_cli),
         "ms": ms512,
         "plain_ms": plain512,
         "shape": f"{N_512}x512x512 uint8, chunks of {CHUNK}",
         "ms_1024": ms1024,
         "plain_ms_1024": plain1024,
         "shape_1024": f"{N_1024}x1024x1024 uint8, chunks of {CHUNK}",
+        "ms_752x480": ms_cli,
+        "plain_ms_752x480": plain_cli,
+        "shape_752x480": f"2 cameras x {N_CLI}x480x752 uint8, chunks of {CHUNK}",
+        "launches_cli": launches_cli,
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

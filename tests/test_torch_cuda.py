@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA threshold
-kernel against its plain torch version, and the cold detector on the card
-against the CPU path.  They skip without a CUDA device.
+kernel against its plain torch version, the cold detector on the card
+against the CPU path, and the CLI on the card against the CLI on the CPU.
+They skip without a CUDA device.
 
 This file imports neither jax nor ``ccrs_tpu``, so it also runs on a
 machine with the card and no JAX (``tests/conftest.py`` imports jax, hence
@@ -101,3 +102,64 @@ def test_detector_on_card_matches_cpu(card):
         assert sorted(c) == sorted(g)
         for t in c:
             np.testing.assert_allclose(g[t], c[t], rtol=0, atol=1e-3)
+
+
+def _cli(args, cwd):
+    import contextlib
+    import io
+    import os
+
+    from ccrs_tpu_torch.cli import main
+
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            main(args)
+    finally:
+        os.chdir(old)
+
+
+def _rms_of(out, batch, board):
+    import json
+
+    from ccrs_tpu_torch.calib.validate import reprojection_errors
+    from ccrs_tpu_torch.types import RvecTvec
+
+    model = GenericModel.from_json(json.loads((out / "cam0.json").read_text()))
+    poses = json.loads((out / "cam0_poses.json").read_text())
+    rt = {int(f): RvecTvec.from_json(v) for f, v in poses.items()}
+    errs = np.concatenate([e for _, e, _ in reprojection_errors(board, batch, model, rt)])
+    return model, float(np.sqrt(np.mean(errs**2)))
+
+
+@pytest.mark.cuda
+def test_cli_on_card_matches_cpu(card, tmp_path):
+    """The CLI with --platform cuda on the CPU run's detections (its
+    detection cache) lands on the CPU run's optimum within 1e-6 px RMS;
+    a fresh card run (detection on the card) launches the kernel and
+    agrees in fx within 1e-4 relative."""
+    import glob
+
+    from ccrs_tpu_torch.calib.frames import FrameBatch
+    from ccrs_tpu_torch.testdata import write_euroc_dataset
+
+    ds = str(tmp_path / "dataset")
+    write_euroc_dataset(ds, GenericModel("eucm", GT, 512, 512), n_frames=16, seed=3, noise=1.5)
+    cache = str(tmp_path / "cache")
+    base = [ds, "--model", "eucm", "--no-rerun", "--seed", "1"]
+    _cli(base + ["--platform", "cpu", "--detection-cache", cache, "-o", "cpu"], tmp_path)
+    _cli(base + ["--platform", "cuda", "--detection-cache", cache, "-o", "gpu"], tmp_path)
+    before = threshold_front_cuda.launches
+    _cli(base + ["--platform", "cuda", "-o", "fresh"], tmp_path)
+    assert threshold_front_cuda.launches > before
+
+    (cache_file,) = glob.glob(f"{cache}/cam0_*.npz")
+    batch = FrameBatch.load(cache_file)
+    board = create_default_6x6_board()
+    m_cpu, rms_cpu = _rms_of(tmp_path / "cpu", batch, board)
+    m_gpu, rms_gpu = _rms_of(tmp_path / "gpu", batch, board)
+    assert abs(rms_cpu - rms_gpu) < 1e-6, (rms_cpu, rms_gpu)
+    np.testing.assert_allclose(m_gpu.params, m_cpu.params, rtol=1e-5)
+    m_fresh, _ = _rms_of(tmp_path / "fresh", batch, board)
+    assert abs(m_fresh.params[0] - m_cpu.params[0]) / m_cpu.params[0] < 1e-4

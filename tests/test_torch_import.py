@@ -1,6 +1,7 @@
 """The PyTorch port imports with jax unavailable and never imports the JAX
-package: every module of ``ccrs_tpu_torch`` is imported in a subprocess in
-which ``import jax`` fails."""
+package: every module of ``ccrs_tpu_torch`` is imported, and ``python -m
+ccrs_tpu_torch --help`` and ``python -m ccrs_tpu_torch.testdata --help``
+run, in a subprocess in which ``import jax`` fails."""
 
 import os
 import subprocess
@@ -21,6 +22,18 @@ names = ["ccrs_tpu_torch"] + [
 ]
 for name in names:
     importlib.import_module(name)
+import contextlib, io, runpy
+for entry in ("ccrs_tpu_torch", "ccrs_tpu_torch.testdata"):
+    sys.argv = [entry, "--help"]
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(entry, run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, (entry, e.code)
+    else:
+        raise AssertionError(f"{entry} --help did not exit")
+    assert "usage:" in out.getvalue(), out.getvalue()
 bad = sorted(m for m in sys.modules if m == "ccrs_tpu" or m.startswith("ccrs_tpu."))
 assert not bad, bad
 import torch
