@@ -7,7 +7,12 @@ batched unproject -> planar-PnP path of ``src/util.rs:418-439`` with the
 <10-valid frame skip expressed as a frame mask.
 
 The solve is the float64 ``ba_solve`` throughout, where the JAX package
-runs its mixed-precision ``ba_solve_mixed`` (ROADMAP A.8).
+runs its mixed-precision ``ba_solve_mixed`` (a float32 descent, then a
+float64 polish of ``polish_iters`` iterations).  ``calib_camera`` accepts
+``polish_iters`` for the same callers and ignores it: a float64 solve has
+no separate polish.  The warm-start arguments (``warm_poses``,
+``warm_valid``, ``skip_pose_init``) and the float32 pose init
+(``pose_init_f32``) of the speculative calibration are ported.
 """
 
 from __future__ import annotations
@@ -82,12 +87,35 @@ def pose_init(unproj, params, p2d, mask, p3d):
 def calib_camera_solve(
     unproj, proj, theta0, params_full, p2d, mask, p3d, lo, hi, free,
     one_focal: bool, max_iters: int = 60, huber_delta: float = 1.0,
+    warm_poses=None, warm_valid=None, skip_pose_init: bool = False,
+    pose_init_f32: bool = False,
 ):
     """Pose init through ``params_full`` then the Schur LM from ``theta0``;
     every argument a tensor on the solve's device.  Returns
-    (BAResult, frame_valid (F,))."""
-    poses0, frame_valid = pose_init(unproj, params_full, p2d, mask, p3d)
-    frame_valid = frame_valid * (mask.sum(dim=1) > 0)
+    (BAResult, frame_valid (F,)).
+
+    ``warm_poses`` (F, 6) / ``warm_valid`` (F,): frames with
+    ``warm_valid > 0`` start from the warm pose instead of the PnP pose.
+    ``skip_pose_init``: no PnP at all; every frame starts from
+    ``warm_poses`` and a frame is valid when it has >= MIN_PNP_POINTS
+    observed corners (the PnP path counts unprojectable corners, a
+    tighter test).  ``pose_init_f32``: the PnP runs in float32 (only for
+    seed-quality solves; the poses come back as float64)."""
+    if skip_pose_init:
+        poses0 = warm_poses
+        frame_valid = (mask.sum(dim=1) >= MIN_PNP_POINTS).to(theta0.dtype)
+    else:
+        if pose_init_f32:
+            f32 = torch.float32
+            poses0, frame_valid = pose_init(
+                unproj, params_full.to(f32), p2d.to(f32), mask, p3d.to(f32)
+            )
+        else:
+            poses0, frame_valid = pose_init(unproj, params_full, p2d, mask, p3d)
+        poses0 = poses0.to(theta0.dtype)
+        frame_valid = frame_valid.to(theta0.dtype) * (mask.sum(dim=1) > 0)
+        if warm_poses is not None:
+            poses0 = torch.where((warm_valid > 0)[:, None], warm_poses, poses0)
     res = ba_solve(
         proj, theta0, poses0, p3d, p2d, mask.to(theta0.dtype), lo, hi, free,
         frame_valid, one_focal=one_focal, max_iters=max_iters,
@@ -103,12 +131,27 @@ def calib_camera(
     xy_same_focal: bool,
     disabled_distortions: int,
     fixed_focal: bool,
+    warm_poses: Optional[np.ndarray] = None,
+    warm_valid: Optional[np.ndarray] = None,
+    polish_iters: int = 12,
+    skip_pose_init: bool = False,
+    pose_init_f32: bool = False,
     device="cpu",
 ) -> Optional[Tuple[GenericModel, Dict[int, RvecTvec]]]:
     """Full single-camera BA (``src/util.rs:384-490``) on ``device``.
 
+    ``warm_poses`` (F, 6) / ``warm_valid`` (F,): optional pose warm start
+    (the speculative solve's poses seed the final one); the intrinsics
+    warm start rides ``camera``.  ``skip_pose_init`` drops the PnP init
+    (requires ``warm_poses`` covering every frame), ``pose_init_f32`` runs
+    it in float32 (see ``calib_camera_solve``).  ``polish_iters`` has no
+    effect (see the module docstring).
+
     Returns (calibrated model, {frame_idx: board->camera pose}) or None.
     """
+    if skip_pose_init and warm_poses is None:
+        raise ValueError("skip_pose_init requires warm_poses")
+    del polish_iters  # the float64 solve has no separate polish
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=F64, device=device)
@@ -130,6 +173,9 @@ def calib_camera(
         unproject_fn(camera.name), project_fn(camera.name), t(theta0),
         t(camera.params), p2d, mask, p3d, t(lo), t(hi), t(free),
         one_focal=xy_same_focal,
+        warm_poses=None if warm_poses is None else t(warm_poses),
+        warm_valid=None if warm_valid is None else t(warm_valid),
+        skip_pose_init=skip_pose_init, pose_init_f32=pose_init_f32,
     )
     if float(frame_valid.sum()) == 0 or not bool(torch.isfinite(res.cost)):
         return None

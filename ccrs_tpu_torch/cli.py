@@ -1,13 +1,17 @@
 """ccrs-compatible command-line interface of the PyTorch port.
 
-Port of ``ccrs_tpu/cli.py``, cold: the same positional dataset path, flags,
+Port of ``ccrs_tpu/cli.py``: the same positional dataset path, flags,
 defaults, printed lines and artifact set (``default_board_config.json`` in
 the working directory; ``cam{i}.json``, ``cam{i}_poses.json``,
 ``extrinsics.json`` and ``report.txt`` under the output folder, plus
 ``camchain.yaml`` with ``--export-camchain`` and ``logging.rrd`` when
-``rerun`` is installed).  Detection runs the cold detector (wave tracking
-is ROADMAP A.7) and calibration the cold retry ladder; even a one-camera
-run ends in the joint multi-camera solve, as in the reference.
+``rerun`` is installed).  The default composition is the JAX package's:
+wave-tracked detection (``CCRS_TRACK=0`` detects every frame cold) and
+speculative calibration, which solves on the tracker's provisional
+detections while its audits run and warm-starts each camera's retry
+ladder (``--no-speculate`` or ``CCRS_SPECULATE=0`` turn it off; results
+are the same either way).  Even a one-camera run ends in the joint
+multi-camera solve, as in the reference.
 
 Run as ``python -m ccrs_tpu_torch <dataset> --model eucm ...``.
 ``--platform cuda`` runs detection, calibration and the joint solve on the
@@ -18,8 +22,9 @@ Randomness: the JAX package splits one PRNG key per camera from
 ``--seed``.  The port derives the cameras' streams up front from
 ``numpy.random.SeedSequence(--seed).spawn(cam_num)``; camera i's RANSAC and
 retry draws come from a ``torch.Generator`` on the solve's device seeded
-with the first word of its child sequence.  The draws differ from the JAX
-package's; the calibrated optimum does not depend on which valid
+with the first word of its child sequence.  A camera's speculative solve
+starts from a copy of that generator's state.  The draws differ from the
+JAX package's; the calibrated optimum does not depend on which valid
 hypothesis seeded it.
 """
 
@@ -40,7 +45,7 @@ from .board import Board, BoardConfig
 from .calib import validation
 from .calib.frames import FrameBatch
 from .calib.multi import calib_all_camera_with_extrinsics, init_camera_extrinsic
-from .calib.pipeline import calibrate_camera_with_retries
+from .calib.pipeline import SpeculativeCalib, calibrate_camera_with_retries
 from .dataloader import load_euroc, load_general
 from .detect import FAMILY_NAMES, TagDetector
 from .io import object_from_json, object_to_json, write_report
@@ -107,9 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--no-speculate",
         action="store_true",
-        help="accepted for compatibility; a no-op until speculative "
-        "calibration is ported (results are identical either way, "
-        "speculation only changes timing)",
+        help="disable speculative calibration (the solve that overlaps "
+        "detection audits; results are identical either way, speculation "
+        "only changes timing — CCRS_SPECULATE=0 is equivalent)",
     )
     return p
 
@@ -157,14 +162,32 @@ def camera_generators(seed: int, cam_num: int, device) -> List[torch.Generator]:
     ]
 
 
-def load_feature_data(args, detector, board, recorder) -> List[FrameBatch]:
-    """Detect features for every camera."""
+def load_feature_data(args, detector, board, recorder, specs=None,
+                      generators=None) -> List[FrameBatch]:
+    """Detect features for every camera.
+
+    ``specs`` / ``generators``: optional dict + per-camera generators that
+    enable SPECULATIVE calibration — a SpeculativeCalib per camera is
+    registered on the detector, so its solve overlaps the detection
+    audits, and stored in ``specs[cam_idx]`` for ``calibrate_all_cameras``.
+    """
     print("Start loading images and detecting charts.")
     t0 = time.perf_counter()
     loader = load_euroc if args.dataset_format == "euroc" else load_general
+    spec_factory = None
+    if specs is not None:
+        def spec_factory(cam_idx, times, width, height):
+            spec = SpeculativeCalib(
+                board, times, zeros_like_model(args.model),
+                _cam_calib_params(args, cam_idx), generators[cam_idx],
+                width, height,
+            )
+            specs[cam_idx] = spec
+            return spec.on_provisional
+
     batches = loader(
         args.path, detector, board, args.start_idx, args.step, args.cam_num,
-        recorder, cache_dir=args.detection_cache,
+        recorder, cache_dir=args.detection_cache, spec_factory=spec_factory,
     )
     dt = time.perf_counter() - t0
     print(f"detecting feature took {dt:.6f} sec")
@@ -185,22 +208,47 @@ def load_feature_data(args, detector, board, recorder) -> List[FrameBatch]:
     return [b.truncate(args.max_images) for b in batches]
 
 
-def calibrate_all_cameras(args, board, batches, recorder, generators, device):
+def _warm_adapter(spec, batch):
+    """Wrap SpeculativeCalib.take for a batch that may have been TRUNCATED
+    after detection (--max-images, as the reference truncates after
+    detecting, ``src/bin/camera_calibration.rs:190-191``): clip the warm
+    pose rows to the batch length."""
+    if spec is None:
+        return None
+
+    def provider():
+        warm = spec.take()
+        if warm is None:
+            return None
+        model, poses, valid, init_frames = warm
+        F = batch.n_frames
+        if len(poses) < F:
+            return None
+        return (model, poses[:F], valid[:F], init_frames)
+
+    return provider
+
+
+def calibrate_all_cameras(args, board, batches, recorder, generators, device,
+                          specs=None):
     intrinsics, cam_rtvecs = [], []
     for cam_idx, batch in enumerate(batches):
+        warm_provider = _warm_adapter((specs or {}).get(cam_idx), batch)
         try:
             with stage(f"cam{cam_idx}/calibrate"):
                 model, rtvecs = calibrate_camera_with_retries(
                     board, batch, zeros_like_model(args.model),
                     _cam_calib_params(args, cam_idx), generators[cam_idx],
-                    seed=args.seed + cam_idx, device=device,
+                    seed=args.seed + cam_idx, warm_provider=warm_provider,
+                    device=device,
                 )
         except RuntimeError as e:
             raise SystemExit(f"cam{cam_idx}: {e}")
         init_frames = calibrate_camera_with_retries.last_init_frames
         if init_frames is not None:
             # /cam{i}/keyframe{j} markers for the two init frames
-            # (src/util.rs:898-908)
+            # (src/util.rs:898-908); a warm start's init frames can sit
+            # past a --max-images truncation: those markers are skipped
             recorder.log_keyframes(
                 cam_idx,
                 [int(batch.time_ns[f]) for f in init_frames if 0 <= f < batch.n_frames],
@@ -307,9 +355,13 @@ def main(argv=None):
     ctx = with_profiler(profile_dir) if profile_dir else contextlib.nullcontext()
     with ctx:
         generators = camera_generators(args.seed, args.cam_num, device)
-        batches = load_feature_data(args, detector, board, recorder)
+        speculate = (
+            not args.no_speculate and os.environ.get("CCRS_SPECULATE", "1") != "0"
+        )
+        specs = {} if speculate else None
+        batches = load_feature_data(args, detector, board, recorder, specs, generators)
         intrinsics, cam_rtvecs = calibrate_all_cameras(
-            args, board, batches, recorder, generators, device
+            args, board, batches, recorder, generators, device, specs
         )
         with stage("joint_ba"):
             t_cam_i_0 = init_camera_extrinsic(cam_rtvecs, device=device)

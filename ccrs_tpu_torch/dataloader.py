@@ -1,9 +1,12 @@
-"""Dataset loaders: EuRoC and general folder layouts, cold detection.
+"""Dataset loaders: EuRoC and general folder layouts.
 
 Port of ``ccrs_tpu/dataloader.py`` (``load_euroc`` / ``load_others``,
-``src/data_loader.rs:95-214``) without wave tracking (ROADMAP A.7): images
-decode on host worker threads while the detector runs the previous chunk
-on its device, one ``TagDetector.detect_batch`` per chunk.  Frame order,
+``src/data_loader.rs:95-214``): images decode on host worker threads and
+upload to the detector's device in chunks of ``DETECT_BATCH`` frames.
+With tracking on (the detector's default) every chunk is fed to one
+``TrackedSession`` per camera, which runs the whole-sequence tracked
+detection once at ``finalize``; with tracking off each chunk is detected
+by ``TagDetector.detect_batch`` while the next images decode.  Frame order,
 timestamp conventions (filename ns for EuRoC, idx * 1e8 for general),
 start/step subsampling, the MIN_CORNERS filter and the detection cache
 (key and ``.npz`` format) match the JAX package, so a cache written by
@@ -13,7 +16,8 @@ either package loads in the other.
 ``.jpg`` files through ``cv2``, ``imageio`` or ``PIL``, whichever imports.
 Chunks upload to a CUDA detector from pinned memory without blocking the
 host.  Eager torch needs no fixed chunk shape, so a short tail chunk keeps
-its natural size.
+its natural size.  ``spec_factory`` registers a per-camera provisional
+hook on the detector (the CLI's speculative calibration).
 """
 
 from __future__ import annotations
@@ -112,10 +116,16 @@ def _detect_sequence(
     board: Board,
     recorder=None,
     cam_idx: int = 0,
+    spec_factory=None,
 ) -> FrameBatch:
-    """Decode + detect a whole sequence, overlapping host decoding with the
-    detection of the previous chunk; returns a timestamp-sorted
-    FrameBatch."""
+    """Decode + detect a whole sequence, overlapping host decoding with
+    uploads and detection; returns a timestamp-sorted FrameBatch.
+
+    ``spec_factory(cam_idx, times_ns_sorted, width, height)``, when given,
+    is called once, when the first image reveals the frame size, and
+    returns an ``on_provisional`` hook (or None) for the detector; the
+    hook is removed when the camera's detection ends.
+    """
     if not paths:
         return FrameBatch(
             np.zeros(0, np.int64), np.zeros((0, board.n_corners, 2)),
@@ -124,6 +134,9 @@ def _detect_sequence(
     order = np.argsort(np.asarray(times_ns, dtype=np.int64), kind="stable")
     paths = [paths[i] for i in order]
     times_ns = [times_ns[i] for i in order]
+    # each camera is an independent video: don't track across the boundary
+    detector.reset_tracking()
+    session = detector.begin_tracked(board, n_frames=len(paths))
     # Rerun logging keeps every frame's pixels until detection ends: only
     # when the recorder records
     if recorder is not None and not getattr(recorder, "active", True):
@@ -136,28 +149,42 @@ def _detect_sequence(
 
     def detect_one():
         dev = pending.pop(0)
+        if session is not None:
+            session.feed(dev)
+            return
         with stage(f"cam{cam_idx}/detect"):
             detections.extend(detector.detect_batch(None, board=board, dev_images=dev))
 
-    with cf.ThreadPoolExecutor(max_workers=min(16, os.cpu_count() or 4)) as pool:
-        futures = [pool.submit(_imread, p) for p in paths]
-        chunk: list = []
-        for i, fut in enumerate(futures):
-            with stage(f"cam{cam_idx}/decode+upload"):
-                img = fut.result()
-                if width is None:
-                    height, width = img.shape[:2]
-                chunk.append(img)
-                if recorder is not None:
-                    rec_imgs.append(img)
-                last = i == len(futures) - 1
-                if len(chunk) >= DETECT_BATCH or last:
-                    # enqueue this chunk's upload, then detect the previous
-                    # one while the next images decode
-                    pending.append(_upload(chunk, detector.device))
-                    chunk = []
-            while len(pending) > 1 or (last and pending):
-                detect_one()
+    try:
+        with cf.ThreadPoolExecutor(max_workers=min(16, os.cpu_count() or 4)) as pool:
+            futures = [pool.submit(_imread, p) for p in paths]
+            chunk: list = []
+            for i, fut in enumerate(futures):
+                with stage(f"cam{cam_idx}/decode+upload"):
+                    img = fut.result()
+                    if width is None:
+                        height, width = img.shape[:2]
+                        if spec_factory is not None:
+                            detector.on_provisional = spec_factory(
+                                cam_idx, list(times_ns), width, height
+                            )
+                    chunk.append(img)
+                    if recorder is not None:
+                        rec_imgs.append(img)
+                    last = i == len(futures) - 1
+                    if len(chunk) >= DETECT_BATCH or last:
+                        # enqueue this chunk's upload, then hand the previous
+                        # one on while the next images decode
+                        pending.append(_upload(chunk, detector.device))
+                        chunk = []
+                while len(pending) > 1 or (last and pending):
+                    detect_one()
+        if session is not None:
+            with stage(f"cam{cam_idx}/detect"):
+                detections = session.finalize()
+    finally:
+        if spec_factory is not None:
+            detector.on_provisional = None
     if recorder is not None:
         for t_ns, img, det in zip(times_ns, rec_imgs, detections):
             recorder.log_camera_image(cam_idx, t_ns, img, det)
@@ -179,14 +206,17 @@ def _cache_path(cache_dir, cam_idx, paths, detector, board):
     return os.path.join(cache_dir, f"cam{cam_idx}_{h.hexdigest()[:16]}.npz")
 
 
-def _detect_or_load(paths, times, detector, board, recorder, cam_idx, cache_dir):
+def _detect_or_load(paths, times, detector, board, recorder, cam_idx, cache_dir,
+                    spec_factory=None):
     if cache_dir:
         os.makedirs(cache_dir, exist_ok=True)
         cpath = _cache_path(cache_dir, cam_idx, paths, detector, board)
         if os.path.exists(cpath):
             log.info("cam%d: loading cached detections from %s", cam_idx, cpath)
             return FrameBatch.load(cpath)
-    batch = _detect_sequence(paths, times, detector, board, recorder, cam_idx)
+    batch = _detect_sequence(
+        paths, times, detector, board, recorder, cam_idx, spec_factory
+    )
     if cache_dir:
         batch.save(cpath)
     return batch
@@ -201,6 +231,7 @@ def load_euroc(
     cam_num: int = 1,
     recorder=None,
     cache_dir: str = None,
+    spec_factory=None,
 ) -> List[FrameBatch]:
     """EuRoC layout: {root}/mav0/cam{i}/data/* (``src/data_loader.rs:95``)."""
     out = []
@@ -210,7 +241,9 @@ def load_euroc(
             os.path.join(root, "mav0", f"cam{cam_idx}", "data", "*"), start_idx, step
         )
         times = [_path_timestamp(p) for p in paths]
-        batch = _detect_or_load(paths, times, detector, board, recorder, cam_idx, cache_dir)
+        batch = _detect_or_load(
+            paths, times, detector, board, recorder, cam_idx, cache_dir, spec_factory
+        )
         log.info(
             "cam%d: %d images, %d usable frames, %.3fs",
             cam_idx, len(paths), int(batch.frame_ok().sum()), time.perf_counter() - t0,
@@ -228,6 +261,7 @@ def load_general(
     cam_num: int = 1,
     recorder=None,
     cache_dir: str = None,
+    spec_factory=None,
 ) -> List[FrameBatch]:
     """General layout: {root}/**/cam{i}/**/* with synthetic timestamps
     idx * 1e8 ns (``src/data_loader.rs:160-214``)."""
@@ -238,6 +272,9 @@ def load_general(
         )
         times = [i * 100_000_000 for i in range(len(paths))]
         out.append(
-            _detect_or_load(paths, times, detector, board, recorder, cam_idx, cache_dir)
+            _detect_or_load(
+                paths, times, detector, board, recorder, cam_idx, cache_dir,
+                spec_factory,
+            )
         )
     return out

@@ -1,8 +1,7 @@
-"""TagDetector: the public detection API, cold path.
+"""TagDetector: the public detection API.
 
-Port of ``ccrs_tpu/detect/detector.py`` without wave tracking (ROADMAP
-A.7).  ``detect_batch`` runs a frame batch through the three-stage
-pipeline, chunk by chunk:
+Port of ``ccrs_tpu/detect/detector.py``.  The cold pipeline runs a frame
+batch chunk by chunk:
 
   device: threshold front-end (the CUDA kernel on a CUDA tensor)
       ->  host: bitmap download, native C++ quad extraction
@@ -10,12 +9,16 @@ pipeline, chunk by chunk:
           recovery decode of the tags the first pass missed.
 
 Chunks take their natural size (the JAX package's CPU chunk plan); the
-decode buffer is sized to the chunk's largest quad count.  ``detect`` on a
-single image wraps the batch path.
+decode buffer is sized to the chunk's largest quad count.  With a board,
+``detect_batch`` takes the wave-tracking video fast path by default
+(detect/tracked.py; ``track=False`` or ``CCRS_TRACK=0`` turns it off),
+whose anchors and audits run the cold pipeline on chosen frames.
+``detect`` on a single image wraps the batch path.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 import numpy as np
@@ -32,6 +35,23 @@ CHUNK = 64
 #: images at least this wide or tall run candidate extraction on a
 #: half-resolution pyramid level (tags there are big enough to lose nothing)
 PYRAMID_MIN_SIDE = 768
+
+
+def _anchor_starts(B: int, K: int, p0: int) -> List[int]:
+    """Anchor-triple start frames for a B-frame batch at cadence K,
+    beginning at p0 (0 unless a streaming carry aligns to the global
+    grid); an anchor is forced at the tail so every frame sits in a
+    segment."""
+    starts: List[int] = []
+    p = p0
+    while p <= B - 3:
+        starts.append(p)
+        p += K
+    if not starts or starts[-1] != B - 3:
+        if starts and B - 3 - starts[-1] < 3:
+            starts.pop()
+        starts.append(B - 3)
+    return starts
 
 
 def _dilate_white_host(binary: np.ndarray) -> np.ndarray:
@@ -101,14 +121,25 @@ def _dedup_levels(q1, c1, q2, c2, max_quads):
 
 
 class TagDetector:
-    """AprilGrid tag detector (cold path).
+    """AprilGrid tag detector.
 
     Args:
       family: family name ("t36h11", "t16h5", ...) or a TagFamily.
       refine: run subpixel corner refinement (default True).
-      track: wave tracking is not ported yet; True raises.
+      track: wave tracking when a board is given; None (default) reads
+        ``CCRS_TRACK`` (on unless "0").
       device: where ``detect``/``detect_batch`` put host images; a
         ``dev_images`` tensor runs on its own device.
+
+    Tracking knobs (environment, as in the JAX package): the anchor
+    cadence ``cold_every`` (``CCRS_TRACK_COLD_EVERY``, 40 frames) and the
+    sparse-board threshold ``sparse_frac`` (``CCRS_TRACK_SPARSE_FRAC``,
+    0.30) below which a segment is cold-detected instead of tracked.
+    ``on_provisional``: optional hook called once per tracked batch with
+    the provisional per-frame results, right before the audit rounds
+    (calib/pipeline.SpeculativeCalib).  ``stats``: counters of the last
+    tracked batch (frames, cold_frames, cold_groups, trigger_frames, waves,
+    resweeps; ``provisional_error`` when the hook raised).
     """
 
     def __init__(
@@ -116,19 +147,44 @@ class TagDetector:
         family="t36h11",
         refine: bool = True,
         max_quads: int = MAX_QUADS,
-        track: bool = False,
+        track: bool | None = None,
         device="cpu",
     ):
-        if track:
-            raise NotImplementedError(
-                "wave tracking is not ported to ccrs_tpu_torch yet (ROADMAP A.7)"
-            )
         self.family: TagFamily = (
             family if isinstance(family, TagFamily) else get_family(family)
         )
         self.refine = refine
         self.max_quads = max_quads
         self.device = torch.device(device)
+        if track is None:
+            track = os.environ.get("CCRS_TRACK", "1") != "0"
+        self.track = bool(track)
+        self.cold_every = int(os.environ.get("CCRS_TRACK_COLD_EVERY", "40"))
+        self.sparse_frac = float(os.environ.get("CCRS_TRACK_SPARSE_FRAC", "0.30"))
+        self.on_provisional = None
+        self.stats: dict = {}
+        self.debug = None
+        self._tstate = None
+
+    def reset_tracking(self) -> None:
+        """Drop the frame-to-frame tracking carry (call between cameras /
+        unrelated sequences; a stale carry only costs cold fallbacks, not
+        correctness)."""
+        self._tstate = None
+
+    def begin_tracked(self, board, n_frames: int | None = None):
+        """Open a streaming tracked-detection session
+        (tracked.TrackedSession): ``feed`` chunks as they arrive,
+        ``finalize`` once for the whole sequence, so the audit rounds run
+        once per sequence and the provisional hook sees every frame.
+        ``n_frames`` sizes the preallocated sequence buffer.  Returns None
+        when tracking is unavailable (no board, tracking off, refine off);
+        callers then detect chunk by chunk with ``detect_batch``."""
+        if board is None or not (self.track and self.refine):
+            return None
+        from .tracked import TrackedSession
+
+        return TrackedSession(self, board, n_frames=n_frames)
 
     # ----------------------------------------------------- shared helpers
     def _extract_quads(self, b1, board, scale):
@@ -248,13 +304,24 @@ class TagDetector:
             if not (raw.ndim == 3 and raw.dtype == np.uint8):
                 raw = np.stack([_to_gray_f32(im) for im in raw])
             dev_all = torch.tensor(raw, device=self.device)
+        if board is not None and self.track and self.refine and dev_all.shape[0] > 0:
+            from .tracked import detect_batch_tracked
+
+            return detect_batch_tracked(self, dev_all, board)
         return self._detect_batch_cold(dev_all, board)
 
-    def _detect_batch_cold(self, dev_all, board) -> List[Dict[int, np.ndarray]]:
+    def _detect_batch_cold(self, dev_all, board, idx=None) -> List[Dict[int, np.ndarray]]:
         """The full detection pipeline over a (B, H, W) tensor, chunk by
         chunk: threshold -> bitmap download -> native quad extraction ->
-        refine+decode -> board-assist recovery."""
+        refine+decode -> board-assist recovery.
+
+        ``idx``: optional frame indices into ``dev_all`` to detect (the
+        tracked path's anchors and audits); each chunk gathers its frames
+        with ``index_select`` and results come back in ``idx`` order."""
         B, H, W = dev_all.shape
+        if idx is not None:
+            sel = torch.as_tensor(np.asarray(idx, np.int64), device=dev_all.device)
+            B = int(sel.shape[0])
         # Large-image path: the pixel-proportional candidate stages run at
         # half resolution when the image is >= pyramid_min_side a side;
         # refinement and decode always sample the full-resolution frames
@@ -265,7 +332,10 @@ class TagDetector:
 
         results: List[Dict[int, np.ndarray]] = []
         for lo in range(0, B, CHUNK):
-            part = dev_all[lo : lo + CHUNK].contiguous()
+            if idx is None:
+                part = dev_all[lo : lo + CHUNK].contiguous()
+            else:
+                part = dev_all.index_select(0, sel[lo : lo + CHUNK])
             packed = threshold_front(part, scale).cpu().numpy()
             b1 = np.unpackbits(packed, axis=-1, count=pw)[:, :sH, :sW]
             quads, counts = self._extract_quads(b1, board, scale)

@@ -17,6 +17,7 @@ import numpy as np
 
 from .board import Board, BoardConfig
 from .calib.frames import FrameBatch
+from .detect.track import carry_to_device
 from .models import GenericModel
 from .types import RvecTvec
 
@@ -49,6 +50,18 @@ def frame_batch_from_ref(batch) -> FrameBatch:
         int(batch.width),
         int(batch.height),
     )
+
+
+def wave_carry_from_ref(carry, device="cpu"):
+    """The port's wave carry (track.wave_advance) from the JAX package's:
+    any 9-sequence of arrays (c3, v3, c2, v2, c1, v1, coast_c, coast_v,
+    coast_age) becomes tensors on ``device`` with the same dtypes
+    (float32 corners, bool validity, int32 coast age)."""
+    dtypes = (np.float32, bool, np.float32, bool, np.float32, bool,
+              np.float32, np.float32, np.int32)
+    if len(carry) != len(dtypes):
+        raise ValueError(f"a wave carry has {len(dtypes)} arrays, got {len(carry)}")
+    return carry_to_device([np.asarray(a, dt) for a, dt in zip(carry, dtypes)], device)
 
 
 def rvectvec_from_ref(rt) -> RvecTvec:

@@ -27,6 +27,7 @@ emulated float64, and the port solves in float64 throughout.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -50,6 +51,21 @@ class LMOptions:
     #: climbed to ``stall_lam`` (see the JAX package's LMOptions)
     max_rejects: int = 5
     stall_lam: float = 1e2
+
+
+#: ``torch.func``'s forward mode keeps its nesting depth and dual levels
+#: process-global, so two threads inside ``jacfwd`` at once break each
+#: other ("no level exists"); the speculative calibration runs solves on
+#: threads of its own, so every Jacobian evaluation holds this lock
+_JACOBIAN_LOCK = threading.Lock()
+
+
+def _serialized(fn):
+    """``fn`` called under the Jacobian lock."""
+    def call(*args):
+        with _JACOBIAN_LOCK:
+            return fn(*args)
+    return call
 
 
 def cholesky_nan(M):
@@ -152,7 +168,7 @@ def lm_solve(
     eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
     it = 0
     while it < opts.max_iters:
-        J, (r, w) = jacfwd(r_aux, has_aux=True)(x)  # J (B, d, n)
+        J, (r, w) = _serialized(jacfwd(r_aux, has_aux=True))(x)  # J (B, d, n)
         r2 = torch.sum(r * r, dim=-1)
         wtot = w * huber_block_weight(r2, opts.huber_delta)
         Jm = J * free_m
@@ -259,9 +275,9 @@ def ba_solve(
         return r, r
 
     residuals = vmap(frame_residual, in_dims=(None, 0, 0))
-    jacobians = vmap(
+    jacobians = _serialized(vmap(
         jacfwd(r_aux, argnums=(0, 1), has_aux=True), in_dims=(None, 0, 0)
-    )
+    ))
 
     def cost_of(theta, poses):
         r = residuals(theta, poses, p2d)
@@ -422,8 +438,8 @@ def ba_solve_multi(
     fns = [cam0_residual] + [cam_i_residual] * (C - 1)
     residuals = [vmap(f, in_dims=(None, None, 0, 0)) for f in fns]
     jacobians = [
-        vmap(jacfwd(with_aux(f), argnums=(0, 1, 2), has_aux=True),
-             in_dims=(None, None, 0, 0))
+        _serialized(vmap(jacfwd(with_aux(f), argnums=(0, 1, 2), has_aux=True),
+                         in_dims=(None, None, 0, 0)))
         for f in fns
     ]
 

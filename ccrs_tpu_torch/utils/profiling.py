@@ -6,7 +6,11 @@ present, of CUDA.
 
 Enable stage timing with CCRS_TIMING=1 (report printed at exit) or
 ``enable()``, and device traces with ``with_profiler(logdir)`` or the CLI's
-``CCRS_PROFILE_DIR`` environment variable.
+``CCRS_PROFILE_DIR`` environment variable.  ``stage_prefix`` prefixes the
+stage names of the calling thread only, so the speculative calibration's
+thread reports ``spec/...`` stages beside the main thread's.
+CCRS_TIMING_SPANS=1 also records every stage as a (name, thread, t0, t1)
+span, for laying overlapped threads out on a timeline (``spans()``).
 """
 
 from __future__ import annotations
@@ -19,9 +23,12 @@ import threading
 import time
 
 _ENABLED = os.environ.get("CCRS_TIMING", "") not in ("", "0")
+_SPANS = os.environ.get("CCRS_TIMING_SPANS", "") not in ("", "0")
 _totals: dict = collections.defaultdict(float)
 _counts: dict = collections.defaultdict(int)
+_span_list: list = []
 _lock = threading.Lock()
+_tls = threading.local()
 
 
 @contextlib.contextmanager
@@ -30,14 +37,30 @@ def stage(name: str):
     if not _ENABLED:
         yield
         return
+    name = getattr(_tls, "prefix", "") + name
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
         with _lock:
-            _totals[name] += dt
+            _totals[name] += t1 - t0
             _counts[name] += 1
+            if _SPANS and len(_span_list) < 100_000:
+                _span_list.append((name, threading.current_thread().name, t0, t1))
+
+
+@contextlib.contextmanager
+def stage_prefix(prefix: str):
+    """Prefix the stage names of the CURRENT thread (e.g. "spec/" for the
+    speculative calibration, so its overlapped time is not counted as the
+    critical path's calibrate stages)."""
+    prev = getattr(_tls, "prefix", "")
+    _tls.prefix = prev + prefix
+    try:
+        yield
+    finally:
+        _tls.prefix = prev
 
 
 def report() -> str:
@@ -48,14 +71,23 @@ def report() -> str:
 
 
 def reset() -> None:
-    """Clear accumulated stage totals (e.g. after a warmup run)."""
-    _totals.clear()
-    _counts.clear()
+    """Clear accumulated stage totals and spans (e.g. after a warmup run)."""
+    with _lock:
+        _totals.clear()
+        _counts.clear()
+        _span_list.clear()
 
 
 def totals() -> dict:
     """Snapshot of accumulated stage wall-clock seconds."""
-    return dict(_totals)
+    with _lock:
+        return dict(_totals)
+
+
+def spans() -> list:
+    """Snapshot of (name, thread, t0, t1) spans (CCRS_TIMING_SPANS=1)."""
+    with _lock:
+        return list(_span_list)
 
 
 def enable() -> None:

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA threshold
-kernel against its plain torch version, the cold detector on the card
-against the CPU path, and the CLI on the card against the CLI on the CPU.
-They skip without a CUDA device.
+kernel against its plain torch version, the cold and the tracked detector
+on the card against the CPU path, speculative calibration on the card
+against the cold ladder, and the CLI on the card against the CLI on the
+CPU.  They skip without a CUDA device.
 
 This file imports neither jax nor ``ccrs_tpu``, so it also runs on a
 machine with the card and no JAX (``tests/conftest.py`` imports jax, hence
@@ -94,14 +95,78 @@ def test_kernel_rejects_what_it_does_not_take(card):
 def test_detector_on_card_matches_cpu(card):
     frames = _frames(512, 6, noise=1.5)
     board = create_default_6x6_board()
-    cpu = TagDetector("t36h11").detect_batch(None, board, dev_images=frames)
-    gpu = TagDetector("t36h11", device=card).detect_batch(
+    cpu = TagDetector("t36h11", track=False).detect_batch(None, board, dev_images=frames)
+    gpu = TagDetector("t36h11", track=False, device=card).detect_batch(
         None, board, dev_images=frames.to(card)
     )
     for c, g in zip(cpu, gpu):
         assert sorted(c) == sorted(g)
         for t in c:
             np.testing.assert_allclose(g[t], c[t], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_tracked_detector_on_card_matches_cpu(card):
+    """48 frames through the default (tracked) detector on the card and on
+    the CPU: ids exact per frame, corners within 1e-3 px, equal stats; the
+    threshold kernel launches inside the tracked run."""
+    frames = _frames(512, 48, noise=1.5)
+    board = create_default_6x6_board()
+    cpu_det, gpu_det = TagDetector("t36h11"), TagDetector("t36h11", device=card)
+    cpu = cpu_det.detect_batch(None, board, dev_images=frames)
+    before = threshold_front_cuda.launches
+    gpu = gpu_det.detect_batch(None, board, dev_images=frames.to(card))
+    assert threshold_front_cuda.launches > before
+    assert gpu_det.stats == cpu_det.stats and gpu_det.stats["waves"] > 0
+    for c, g in zip(cpu, gpu):
+        assert sorted(c) == sorted(g)
+        for t in c:
+            np.testing.assert_allclose(g[t], c[t], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_speculative_calibration_on_card_matches_cold(card):
+    """Tracked detection with the speculation hook, then the ladder warm
+    started from it, on the card: the cold ladder's optimum (RMS within
+    1e-6 px), with no recorded speculation error."""
+    from ccrs_tpu_torch.calib.frames import FrameBatch
+    from ccrs_tpu_torch.calib.pipeline import SpeculativeCalib, calibrate_camera_with_retries
+    from ccrs_tpu_torch.models import zeros_like_model
+    from ccrs_tpu_torch.types import CalibParams
+
+    frames = _frames(512, 24, noise=1.0, device=card)
+    board = create_default_6x6_board()
+    times = list(range(24))
+    det = TagDetector("t36h11", device=card)
+    spec = SpeculativeCalib(board, times, zeros_like_model("eucm"), CalibParams(),
+                            torch.Generator(device=card).manual_seed(7), 512, 512)
+    det.on_provisional = spec.on_provisional
+    batch = FrameBatch.from_detections(
+        det.detect_batch(None, board, dev_images=frames), times, board, 512, 512
+    )
+
+    def ladder(provider):
+        return calibrate_camera_with_retries(
+            board, batch, zeros_like_model("eucm"), CalibParams(),
+            torch.Generator(device=card).manual_seed(7), warm_provider=provider,
+            device=card,
+        )
+
+    warm = ladder(spec.take)
+    assert spec.started and spec.error is None
+    assert calibrate_camera_with_retries.last_spec_used
+    cold = ladder(None)
+    _, rms_warm = _rms_result(board, batch, *warm)
+    _, rms_cold = _rms_result(board, batch, *cold)
+    assert abs(rms_warm - rms_cold) < 1e-6, (rms_warm, rms_cold)
+    np.testing.assert_allclose(warm[0].params, cold[0].params, rtol=1e-6, atol=1e-5)
+
+
+def _rms_result(board, batch, model, rt):
+    from ccrs_tpu_torch.calib.validate import reprojection_errors
+
+    errs = np.concatenate([e for _, e, _ in reprojection_errors(board, batch, model, rt)])
+    return model, float(np.sqrt(np.mean(errs**2)))
 
 
 def _cli(args, cwd):

@@ -2,7 +2,8 @@
 
 A 16-frame one-camera EuRoC dataset written by the JAX package's
 ``write_euroc_dataset`` (PNGs through imageio) loads through both packages'
-``load_euroc`` (the JAX one with ``TagDetector(track=False)``): timestamps
+``load_euroc``, cold (``TagDetector(track=False)`` in both) and tracked
+(both packages' default, streamed through a tracked session): timestamps
 and masks exact, corners within 1e-3 px.  Also: ``start_idx``/``step``,
 ``load_general`` timestamps, a missing folder, ``.jpg`` input, and a
 detection cache written by ``ccrs_tpu`` loading in the port.
@@ -31,6 +32,10 @@ GT = [190.9, 190.87, 254.94, 256.86, 0.628, 1.046]
 N_FRAMES = 16
 
 
+def _cold():
+    return TagDetector("t36h11", track=False)
+
+
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
     root = tmp_path_factory.mktemp("tdl")
@@ -38,7 +43,7 @@ def dataset(tmp_path_factory):
     jax_write_euroc(ds, JaxModel("eucm", GT, 512, 512), n_frames=N_FRAMES, seed=5, noise=1.5)
     cache = str(root / "jax_cache")
     ref = jax_load_euroc(ds, JaxDetector("t36h11", track=False), jax_board(), cache_dir=cache)[0]
-    port = dl.load_euroc(ds, TagDetector("t36h11"), create_default_6x6_board())[0]
+    port = dl.load_euroc(ds, _cold(), create_default_6x6_board())[0]
     return dict(root=root, ds=ds, cache=cache, ref=ref, port=port)
 
 
@@ -53,10 +58,24 @@ def test_load_euroc_matches_reference(dataset):
     assert port.frame_ok().sum() >= 0.8 * N_FRAMES
 
 
+def test_tracked_load_matches_reference(dataset):
+    """Both packages' default loaders (tracking on, chunks streamed into a
+    tracked session) on the same PNGs: ids exact, corners within 1e-3 px."""
+    ref = jax_load_euroc(dataset["ds"], JaxDetector("t36h11"), jax_board())[0]
+    det = TagDetector("t36h11")
+    assert det.track
+    port = dl.load_euroc(dataset["ds"], det, create_default_6x6_board())[0]
+    assert det.stats["frames"] == N_FRAMES and det.stats["waves"] > 0
+    np.testing.assert_array_equal(port.time_ns, ref.time_ns)
+    np.testing.assert_array_equal(port.mask, ref.mask)
+    m = ref.mask
+    np.testing.assert_allclose(port.p2d[m], ref.p2d[m], rtol=0, atol=1e-3)
+
+
 def test_start_idx_and_step(dataset):
     full = dataset["port"]
     sub = dl.load_euroc(
-        dataset["ds"], TagDetector("t36h11"), create_default_6x6_board(),
+        dataset["ds"], _cold(), create_default_6x6_board(),
         start_idx=1, step=3,
     )[0]
     np.testing.assert_array_equal(sub.time_ns, full.time_ns[1::3])
@@ -72,7 +91,7 @@ def test_load_general_timestamps(dataset, tmp_path):
     names = sorted(os.listdir(src))[:5]
     for i, n in enumerate(names):
         shutil.copy(os.path.join(src, n), dst / f"img_{i:03d}.png")
-    b = dl.load_general(str(tmp_path / "gen"), TagDetector("t36h11"), create_default_6x6_board())[0]
+    b = dl.load_general(str(tmp_path / "gen"), _cold(), create_default_6x6_board())[0]
     assert list(b.time_ns) == [i * 100_000_000 for i in range(5)]
     np.testing.assert_array_equal(b.mask, dataset["port"].mask[:5])
 

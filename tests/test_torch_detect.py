@@ -93,6 +93,14 @@ def test_single_image_detect_without_board(frames):
     assert sorted(got) == sorted(want)
 
 
-def test_tracking_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        TagDetector("t36h11", track=True)
+def test_tracking_not_ported(monkeypatch):
+    """The tracking switch: on by default, off with CCRS_TRACK=0, and an
+    explicit ``track`` wins; a tracking detector opens a streaming session
+    only when given a board."""
+    monkeypatch.delenv("CCRS_TRACK", raising=False)
+    assert TagDetector("t36h11").track
+    assert TagDetector("t36h11", track=True).begin_tracked(None) is None
+    assert TagDetector("t36h11", track=False).begin_tracked(create_default_6x6_board()) is None
+    monkeypatch.setenv("CCRS_TRACK", "0")
+    assert not TagDetector("t36h11").track
+    assert TagDetector("t36h11", track=True).track
