@@ -23,7 +23,7 @@ INVALID_PENALTY = 10000.0  # factors.rs:71
 F64 = torch.float64
 
 
-def conversion_grid(source: GenericModel, step_ratio: int = 30, device="cpu"):
+def conversion_grid(source: GenericModel, step_ratio: int = 30, device="cuda"):
     """The reference's conversion grid (factors.rs:33-43 + util.rs:246-247):
     pixels on a [edge, size-edge) lattice with step max(w,h)/30, unprojected
     through the source model (invalid points dropped).  Returns (M, 3)
@@ -43,7 +43,7 @@ def conversion_grid(source: GenericModel, step_ratio: int = 30, device="cpu"):
 
 def convert_model(
     source: GenericModel, target: GenericModel, disabled_distortions: int = 0,
-    device="cpu",
+    device="cuda",
 ) -> None:
     """Fit ``target``'s parameters to reproduce ``source`` (in place)."""
     if source.name == "ucm" and target.name in ("eucm", "eucmt"):

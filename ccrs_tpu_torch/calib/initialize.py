@@ -170,7 +170,7 @@ def try_init_camera(
     frame1: int,
     generator: torch.Generator,
     fixed_focal: Optional[float] = None,
-    device="cpu",
+    device="cuda",
 ) -> Optional[GenericModel]:
     """One initialization attempt (``src/util.rs:107-159``) on ``device``.
 

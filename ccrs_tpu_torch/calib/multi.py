@@ -35,7 +35,7 @@ F64 = torch.float64
 
 
 def init_camera_extrinsic(
-    cam_rtvecs: List[Dict[int, RvecTvec]], device="cpu"
+    cam_rtvecs: List[Dict[int, RvecTvec]], device="cuda"
 ) -> List[RvecTvec]:
     """Estimate T_cam_i<-cam0 from frames seen by both cameras."""
     out = [RvecTvec.identity()]
@@ -85,7 +85,7 @@ def calib_all_camera_with_extrinsics(
     xy_same_focal: bool,
     disabled_distortions: int,
     cam0_fixed_focal: bool,
-    device="cpu",
+    device="cuda",
 ) -> Optional[Tuple[List[GenericModel], List[RvecTvec], Dict[int, RvecTvec]]]:
     """One joint problem over all cameras (``src/util.rs:567-715``) on
     ``device``.

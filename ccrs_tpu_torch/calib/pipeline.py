@@ -92,7 +92,7 @@ def init_and_calibrate_one_camera(
     polish_iters: int = 12,
     pose_init_f32: bool = False,
     out: Optional[dict] = None,
-    device="cpu",
+    device="cuda",
 ) -> Optional[Tuple[GenericModel, Dict[int, RvecTvec]]]:
     """One calibration attempt on ``device``.
 
@@ -211,7 +211,7 @@ def calibrate_camera_with_retries(
     generator: torch.Generator,
     seed: int = 0,
     warm_provider=None,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[GenericModel, Dict[int, RvecTvec]]:
     """<=3 trials on ``device``; retries pick random init frames
     (bin/camera_calibration.rs:217-242).

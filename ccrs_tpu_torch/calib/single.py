@@ -136,7 +136,7 @@ def calib_camera(
     polish_iters: int = 12,
     skip_pose_init: bool = False,
     pose_init_f32: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> Optional[Tuple[GenericModel, Dict[int, RvecTvec]]]:
     """Full single-camera BA (``src/util.rs:384-490``) on ``device``.
 

@@ -14,9 +14,11 @@ are the same either way).  Even a one-camera run ends in the joint
 multi-camera solve, as in the reference.
 
 Run as ``python -m ccrs_tpu_torch <dataset> --model eucm ...``.
-``--platform cuda`` runs detection, calibration and the joint solve on the
-GPU and never falls back to the CPU; ``auto`` picks the GPU when one is
-present.
+Detection, calibration and the joint solve run on the current CUDA device
+(``--platform cuda``, the default) and never fall back to the CPU: without
+a card the run exits with an error.  ``--platform auto`` is kept for flag
+parity with the JAX CLI and also means the card; only ``--platform cpu``
+runs on the CPU.
 
 Randomness: the JAX package splits one PRNG key per camera from
 ``--seed``.  The port derives the cameras' streams up front from
@@ -61,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ccrs",
         description="camera intrinsic calibration from AprilGrid images "
-        "(PyTorch; detection and solves on a CUDA GPU when present)",
+        "(PyTorch; detection and solves on a CUDA GPU)",
     )
     p.add_argument("path", help="path to image folder")
     # t25h7 is accepted for reference-CLI parity but requires a
@@ -104,10 +106,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--platform",
-        default="auto",
+        default="cuda",
         choices=["auto", "cpu", "cuda"],
-        help="device to run on (auto = cuda when a CUDA device is present, "
-        "else cpu; cuda without a device exits with an error)",
+        help="device to run on (default cuda: the current CUDA device; auto "
+        "means the same; without a device both exit with an error; only cpu "
+        "runs on the CPU)",
     )
     p.add_argument(
         "--no-speculate",
@@ -120,12 +123,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def resolve_device(platform: str) -> torch.device:
-    """The device ``--platform`` names; never a silent CPU fallback."""
-    if platform == "cuda" or (platform == "auto" and torch.cuda.is_available()):
-        if not torch.cuda.is_available():
-            raise SystemExit("--platform cuda: no CUDA device is available")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    """The device ``--platform`` names: the CPU only for ``cpu``; ``cuda``
+    and ``auto`` mean the current CUDA device and exit without one (never a
+    silent CPU fallback)."""
+    if platform == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit(f"--platform {platform}: no CUDA device is available")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def setup_board(args) -> Board:
@@ -272,7 +277,7 @@ def _write_camchain(args, output_folder, models, t_i_0=None):
 
 def save_and_validate_results(
     args, output_folder, board, batches, intrinsics, cam_rtvecs, t_cam_i_0,
-    recorder, device="cpu",
+    recorder, device="cuda",
 ):
     with stage("joint_ba"):
         joint = calib_all_camera_with_extrinsics(

@@ -128,8 +128,9 @@ class TagDetector:
       refine: run subpixel corner refinement (default True).
       track: wave tracking when a board is given; None (default) reads
         ``CCRS_TRACK`` (on unless "0").
-      device: where ``detect``/``detect_batch`` put host images; a
-        ``dev_images`` tensor runs on its own device.
+      device: where ``detect``/``detect_batch`` put host images (default
+        the current CUDA device; pass "cpu" for the CPU); a ``dev_images``
+        tensor runs on its own device.
 
     Tracking knobs (environment, as in the JAX package): the anchor
     cadence ``cold_every`` (``CCRS_TRACK_COLD_EVERY``, 40 frames) and the
@@ -148,7 +149,7 @@ class TagDetector:
         refine: bool = True,
         max_quads: int = MAX_QUADS,
         track: bool | None = None,
-        device="cpu",
+        device="cuda",
     ):
         self.family: TagFamily = (
             family if isinstance(family, TagFamily) else get_family(family)

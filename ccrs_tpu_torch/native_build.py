@@ -35,9 +35,10 @@ def nvcc_path() -> str:
     return found
 
 
-def ensure_built(so_path: str, sources, cmd) -> str:
+def ensure_built(so_path: str, sources, cmd, log_path: str | None = None) -> str:
     """Run ``cmd`` (which writes ``so_path``) unless the library exists and
-    is newer than every source.  Returns ``so_path``."""
+    is newer than every source.  Returns ``so_path``.  ``log_path``: where a
+    successful build leaves the compiler's output (e.g. ``ptxas -v``)."""
     with _locks_guard:
         lock = _locks.setdefault(so_path, threading.Lock())
     with lock:
@@ -56,5 +57,8 @@ def ensure_built(so_path: str, sources, cmd) -> str:
                 f"building {os.path.basename(so_path)} failed "
                 f"(exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
             )
+        if log_path is not None:
+            with open(log_path, "w") as f:
+                f.write(proc.stdout + proc.stderr)
         os.replace(tmp, so_path)
         return so_path

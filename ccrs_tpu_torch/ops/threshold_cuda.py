@@ -2,12 +2,15 @@
 
 The kernel replaces ``ccrs_tpu/ops/threshold_pallas.py::_kernel`` and fuses
 all of ``threshold_front`` (pyramid pooling, white padding, adaptive
-threshold, separation pass, bit packing).  Its plain torch twin is
+threshold, separation pass, bit packing) into one launch that allocates
+nothing: the wrapper allocates only the output.  Its plain torch twin is
 ``ccrs_tpu_torch.detect.threshold.threshold_front_plain``.
 
 The library is compiled with nvcc for ``sm_90a`` into
 ``ccrs_tpu_torch/_build/libccrs_kernels.so`` at first use (plain C entry
-points, loaded with ctypes) and rebuilt when the source is newer.
+points, loaded with ctypes) and rebuilt when the source is newer; the
+build's ``ptxas -v`` report (registers, shared memory, spills) is kept in
+``_build/libccrs_kernels.ptxas.txt`` (``ptxas_report``).
 ``threshold_front_cuda.launches`` counts the calls that launched the
 kernel.
 """
@@ -25,6 +28,7 @@ from ..native_build import BUILD_DIR, ensure_built, nvcc_path
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "threshold.cu")
 _SO = os.path.join(BUILD_DIR, "libccrs_kernels.so")
+_LOG = os.path.join(BUILD_DIR, "libccrs_kernels.ptxas.txt")
 
 _lock = threading.Lock()
 _lib = None
@@ -34,10 +38,20 @@ def build() -> str:
     """Compile the kernel library if needed; returns its path."""
     cmd = [
         nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
         "-o", _SO, _SRC,
     ]
-    return ensure_built(_SO, [_SRC], cmd)
+    return ensure_built(_SO, [_SRC], cmd, log_path=_LOG)
+
+
+def ptxas_report() -> list[str]:
+    """The per-kernel lines of the last build's ``ptxas -v`` output
+    (registers, shared memory, spill stores and loads)."""
+    if not os.path.exists(_LOG):
+        return []
+    with open(_LOG) as f:
+        return [ln.strip() for ln in f if "spill" in ln or (
+            "ptxas info" in ln and ("Used" in ln or "Compiling" in ln))]
 
 
 def _load():
@@ -47,7 +61,7 @@ def _load():
             return _lib
         lib = ctypes.CDLL(build())
         args = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # in out scratch
+            ctypes.c_void_p, ctypes.c_void_p,  # in out
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H W
             ctypes.c_int, ctypes.c_float,  # scale min_contrast
             ctypes.c_void_p,  # cudaStream_t
@@ -55,10 +69,18 @@ def _load():
         for fn in (lib.ccrs_threshold_front_u8, lib.ccrs_threshold_front_f32):
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        lib.ccrs_threshold_kernel_launches.argtypes = []
+        lib.ccrs_threshold_kernel_launches.restype = ctypes.c_ulonglong
         lib.ccrs_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ccrs_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def kernel_launches() -> int:
+    """Kernels the library has launched in this process, counted in C
+    where it launches them (each wrapper call launches exactly one)."""
+    return int(_load().ccrs_threshold_kernel_launches())
 
 
 def threshold_front_cuda(images, scale: int = 1, tile: int = 4,
@@ -90,15 +112,13 @@ def threshold_front_cuda(images, scale: int = 1, tile: int = 4,
     out = torch.empty((B, sHp, sWp // 8), dtype=torch.uint8, device=dev)
     if B == 0:
         return out
-    scratch = torch.empty((B, sHp // 4, sWp // 4, 2), dtype=torch.float32,
-                          device=dev)
     lib = _load()
     fn = (lib.ccrs_threshold_front_u8 if images.dtype == torch.uint8
           else lib.ccrs_threshold_front_f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(images.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                B, H, W, scale, float(min_contrast), stream)
+        rc = fn(images.data_ptr(), out.data_ptr(), B, H, W, scale,
+                float(min_contrast), stream)
     if rc != 0:
         msg = lib.ccrs_cuda_error_string(rc).decode()
         raise RuntimeError(f"threshold kernel launch failed: {msg} ({rc})")

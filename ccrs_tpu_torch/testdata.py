@@ -168,7 +168,7 @@ def render_frames_device(
     noise: float = 2.0,
     generator: torch.Generator | None = None,
     blur_sigma: float = 0.7,
-    device="cpu",
+    device="cuda",
 ):
     """Render a pose sequence (F, 6) on ``device``; returns (F, H, W)
     uint8 there, ready for ``TagDetector.detect_batch(None, board,
@@ -302,7 +302,7 @@ def write_euroc_dataset(
     seed: int = 0,
     noise: float = 2.0,
     span_scale: float = 1.0,
-    device="cpu",
+    device="cuda",
 ):
     """Materialize a EuRoC-layout dataset ({root}/mav0/cam{i}/data/*.png) of
     rendered frames; returns (poses (F,6), model).
@@ -374,16 +374,14 @@ def _main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--platform",
-        default="auto",
+        default="cuda",
         choices=["auto", "cpu", "cuda"],
-        help="device to render on (auto = cuda when a card is present)",
+        help="device to render on (default cuda; auto means the same; only "
+        "cpu renders on the CPU)",
     )
     args = ap.parse_args(argv)
-    if args.platform == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--platform cuda: no CUDA device available")
-    cuda = args.platform == "cuda" or (
-        args.platform == "auto" and torch.cuda.is_available()
-    )
+    if args.platform != "cpu" and not torch.cuda.is_available():
+        raise SystemExit(f"--platform {args.platform}: no CUDA device available")
     model = GenericModel(
         "eucm", [190.9, 190.87, 254.94, 256.86, 0.628, 1.046], 512, 512
     )
@@ -393,7 +391,7 @@ def _main(argv=None):
         n_frames=args.frames,
         cam_num=args.cam_num,
         seed=args.seed,
-        device="cuda" if cuda else "cpu",
+        device="cpu" if args.platform == "cpu" else "cuda",
     )
     print(f"wrote {args.frames} frames to {args.out_dir}/dataset (EuRoC layout)")
 

@@ -41,8 +41,12 @@ frames >= 80%, a CPU float64 re-solve of the joint BA from the card's
 result at the same RMS within 1e-6 px, and no speculation error.  In
 every phase the threshold kernel is held bit for bit against its plain
 torch version on every frame (for cli: every decoded frame of both
-cameras) and both are timed; every main-path run (and each CLI run) must
-launch it.
+cameras) and both are timed over the whole sequence in the detector's
+chunks of 64: the kernel by CUDA events around the loop of wrapper calls
+and by its device time under torch.profiler (one launch per call, as the
+library counts them, or the run fails), beside the bytes it must move and the bound they give at the
+card's published 3.35 TB/s; every main-path run (and each CLI run) must
+launch it.  The build prints the kernel's ``ptxas -v`` summary.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (builds the CUDA
 kernel, the host quad extractor and the PNG unfilter routine into
@@ -71,6 +75,10 @@ SEED = 11
 #: seed of the calibration generator (RANSAC and retry draws)
 CALIB_SEED = 1
 TIMING_REPS = 10
+#: passes over the sequence under torch.profiler for the kernel's device time
+PROFILE_REPS = 3
+#: published device-memory rate of the H100 SXM (HBM3), bytes/s
+HBM_BYTES_PER_S = 3.35e12
 N_CLI = 640
 #: EuRoC cam0 (the reference example's UCM) written as EUCM with beta = 1
 EUROC_CAM0 = [471.019, 470.243, 367.122, 246.741, 0.67485, 1.0]
@@ -376,9 +384,44 @@ def run_phase(size, n_frames, card):
     return frames, 2 if size >= PYRAMID_MIN_SIDE else 1, sum(launches)
 
 
-def check_kernel(frames, scale, card):
-    """Kernel against its plain version on every frame, bit for bit, and
-    the time of both over the whole sequence in main-path chunks."""
+def kernel_device_ms(torch, parts, scale):
+    """The threshold kernel's device time per pass over ``parts``: the mean
+    CUDA duration of its kernels under torch.profiler (PROFILE_REPS passes)
+    times the calls of a pass, and the kernels the profiler saw per pass
+    (it may miss some; more than one per call fails the run).  (None, 0)
+    when it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ccrs_tpu_torch.ops.threshold_cuda import kernel_launches, threshold_front_cuda
+
+    for p in parts:  # warm
+        threshold_front_cuda(p, scale)
+    torch.cuda.synchronize()
+    launched = kernel_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_REPS):
+            for p in parts:
+                threshold_front_cuda(p, scale)
+        torch.cuda.synchronize()
+    calls = PROFILE_REPS * len(parts)
+    if kernel_launches() - launched != calls:
+        raise RuntimeError(f"{kernel_launches() - launched} kernel launches for {calls} calls")
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "threshold_kernel" in e.name]
+    if len(events) > calls:
+        raise RuntimeError(f"the profiler saw {len(events)} kernels for {calls} calls")
+    if not events:
+        return None, 0
+    mean_us = sum(e.time_range.elapsed_us() for e in events) / len(events)
+    return mean_us * len(parts) / 1e3, len(events) / PROFILE_REPS
+
+
+def check_kernel(frames, scale, card, label):
+    """Kernel against its plain version on every frame, bit for bit; the
+    time of both over the whole sequence in main-path chunks (CUDA events
+    around the loop of calls, wrapper included), the kernel's device time
+    (torch.profiler), and the bytes it must move with the bound they give."""
     import torch
 
     from ccrs_tpu_torch.detect.detector import CHUNK
@@ -386,8 +429,8 @@ def check_kernel(frames, scale, card):
     from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
 
     B, H, W = frames.shape
-    tag = f"[{H}x{W}] ({card})"
-    max_err = 0
+    tag = f"[{label}] ({card})"
+    max_err, out_bytes = 0, 0
     for lo in range(0, B, CHUNK):
         part = frames[lo : lo + CHUNK].contiguous()
         got = threshold_front_cuda(part, scale)
@@ -399,16 +442,49 @@ def check_kernel(frames, scale, card):
         max_err = max(max_err, diff)
         if diff != 0 or not torch.equal(got, want):
             raise RuntimeError(f"{tag} kernel differs from the plain version")
+        out_bytes += got.numel()
     print(f"{tag} threshold kernel == plain version bit for bit on all {B} frames")
 
     parts = [frames[lo : lo + CHUNK].contiguous() for lo in range(0, B, CHUNK)]
     ms = time_ms(torch, lambda: [threshold_front_cuda(p, scale) for p in parts])
     plain_ms = time_ms(torch, lambda: [threshold_front_plain(p, scale) for p in parts])
+    device_ms, per_pass = kernel_device_ms(torch, parts, scale)
+    in_bytes = frames.numel() * frames.element_size()
+    n_bytes = in_bytes + out_bytes
+    bound_us = n_bytes / HBM_BYTES_PER_S * 1e6
+    share = bound_us / (device_ms * 1e3) if device_ms else None
     print(
-        f"{tag} threshold over {B}x{H}x{W} uint8 in chunks of {CHUNK}: "
-        f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms"
+        f"{tag} threshold over {B}x{H}x{W} {frames.dtype} (scale {scale}) in {len(parts)} "
+        f"chunks of {CHUNK}: kernel {ms:.4f} ms (CUDA events around the calls), "
+        f"plain torch {plain_ms:.4f} ms"
     )
-    return max_err, ms, plain_ms
+    if device_ms is None:
+        print(f"{tag} kernel device time not measured: the profiler showed no kernel")
+    else:
+        print(
+            f"{tag} kernel device time {device_ms * 1e3:.3f} us per pass (torch.profiler: mean "
+            f"of the {per_pass:g} kernels it saw per pass x {len(parts)} calls, one launch "
+            f"each); bytes {n_bytes} (in {in_bytes}, out {out_bytes}), bound "
+            f"{bound_us:.3f} us at 3.35 TB/s, {share:.1%} of the bound"
+        )
+    return dict(shape=f"{label} {frames.dtype}, scale {scale}, chunks of {CHUNK}",
+                frames=B, bytes=n_bytes, bound_us=bound_us, device_ms=device_ms,
+                bound_share=share, ms=ms, plain_ms=plain_ms, max_abs_err=max_err)
+
+
+def ptxas_summary():
+    """One line per kernel instantiation of the last build's ptxas -v
+    report: registers, stack frame, spills."""
+    from ccrs_tpu_torch.ops import threshold_cuda
+
+    lines, name = [], None
+    for ln in threshold_cuda.ptxas_report():
+        m = re.search(r"threshold_kernelI([hf])Li(\d)E", ln)
+        if "Compiling entry function" in ln and m:
+            name = f"threshold_kernel<{'uint8' if m.group(1) == 'h' else 'float32'}, scale {m.group(2)}>"
+        elif name is not None and ("Used" in ln or "spill" in ln):
+            lines.append(f"{name}: {ln.replace('ptxas info    : ', '')}")
+    return lines
 
 
 @contextlib.contextmanager
@@ -653,7 +729,6 @@ def main() -> int:
 
     from ccrs_tpu_torch import pngio
     from ccrs_tpu_torch.detect import quads
-    from ccrs_tpu_torch.detect.detector import CHUNK
     from ccrs_tpu_torch.ops import threshold_cuda
 
     def timed_build(build):
@@ -668,21 +743,26 @@ def main() -> int:
         built = [f.result() for f in builds]
     print("built " + ", ".join(f"{name} in {sec:.1f} s" for name, sec in built)
           + " (nvcc sm_90a / g++, in parallel)")
+    ptxas = ptxas_summary()
+    for line in ptxas:
+        print(f"ptxas -v: {line}")
+    if not ptxas:
+        print("ptxas -v: no report (the kernel library was not rebuilt in this run)")
 
     frames, scale, launches512 = run_phase(512, N_512, card)
-    err512, ms512, plain512 = check_kernel(frames, scale, card)
+    k512 = check_kernel(frames, scale, card, f"{N_512}x512x512")
     del frames
     frames, scale, launches1024 = run_phase(1024, N_1024, card)
-    err1024, ms1024, plain1024 = check_kernel(frames, scale, card)
+    k1024 = check_kernel(frames, scale, card, f"{N_1024}x1024x1024")
     del frames
     cli_frames, launches_cli = run_cli_phase(card)
     if launches_cli <= 0:
         raise RuntimeError("the CLI run never launched the threshold kernel")
-    err_cli, ms_cli, plain_cli = 0, 0.0, 0.0
-    for cam_frames in cli_frames:  # every decoded frame of both cameras
-        e, ms, plain = check_kernel(torch.as_tensor(cam_frames).cuda(), 1, card)
-        err_cli, ms_cli, plain_cli = max(err_cli, e), ms_cli + ms, plain_cli + plain
+    # every decoded frame of both cameras, as one sequence of 2 x 640 frames
+    kcli = check_kernel(torch.as_tensor(np.concatenate(cli_frames)).cuda(), 1, card,
+                        f"2 cameras x {N_CLI}x480x752")
     torch.cuda.synchronize()
+    shapes = [k512, k1024, kcli]
 
     print(json.dumps({"kernels": [{
         "name": "threshold_front",
@@ -692,17 +772,20 @@ def main() -> int:
         "launches": launches512 + launches1024 + launches_cli,
         "launches_512": launches512,
         "launches_1024": launches1024,
-        "max_abs_err": max(err512, err1024, err_cli),
-        "ms": ms512,
-        "plain_ms": plain512,
-        "shape": f"{N_512}x512x512 uint8, chunks of {CHUNK}",
-        "ms_1024": ms1024,
-        "plain_ms_1024": plain1024,
-        "shape_1024": f"{N_1024}x1024x1024 uint8, chunks of {CHUNK}",
-        "ms_752x480": ms_cli,
-        "plain_ms_752x480": plain_cli,
-        "shape_752x480": f"2 cameras x {N_CLI}x480x752 uint8, chunks of {CHUNK}",
         "launches_cli": launches_cli,
+        "max_abs_err": max(k["max_abs_err"] for k in shapes),
+        "ms": k512["ms"],
+        "plain_ms": k512["plain_ms"],
+        "bound_ms": k512["bound_us"] / 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes this function
+        "device_ms": k512["device_ms"],
+        "bound_us": k512["bound_us"],
+        "bound_share": k512["bound_share"],
+        "bytes": k512["bytes"],
+        "shape": k512["shape"],
+        "shapes": shapes,  # 512, 1024 and both cli cameras, each with the keys above
+        "ptxas": ptxas,
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

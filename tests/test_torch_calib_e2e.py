@@ -67,7 +67,7 @@ def slice_runs():
     times = list(range(N_FRAMES))
     jdets = JaxDetector("t36h11", track=False).detect_batch(imgs, board=jb)
     tb = create_default_6x6_board()
-    tdets = TagDetector("t36h11", track=False).detect_batch(imgs, board=tb)
+    tdets = TagDetector("t36h11", track=False, device="cpu").detect_batch(imgs, board=tb)
     jbatch = JaxFrameBatch.from_detections(jdets, times, jb, SIZE, SIZE)
     tbatch = FrameBatch.from_detections(tdets, times, tb, SIZE, SIZE)
     jmodel, jrt = jax_calibrate(
@@ -78,10 +78,12 @@ def slice_runs():
     tmodel, trt = calibrate_camera_with_retries(
         tb, shared, zeros_like_model("eucm"), CalibParams(),
         torch.Generator().manual_seed(0),
+        device="cpu",
     )
     own_model, own_rt = calibrate_camera_with_retries(
         tb, tbatch, zeros_like_model("eucm"), CalibParams(),
         torch.Generator().manual_seed(0),
+        device="cpu",
     )
     return dict(
         gt=gt, jdets=jdets, tdets=tdets, jb=jb, tb=tb, jbatch=jbatch,
@@ -137,6 +139,7 @@ def test_fixed_focal_calibration():
     model, rtvecs = init_and_calibrate_one_camera(
         tb, batch, zeros_like_model("eucm"), CalibParams(fixed_focal=190.9),
         torch.Generator().manual_seed(2),
+        device="cpu",
     )
     assert model.params[0] == 190.9 and model.params[1] == 190.9
     _, median = _quiet(validation, tb, batch, model, rtvecs)
@@ -152,5 +155,6 @@ def test_disabled_distortion_pins_beta():
     model, _ = calib_camera(
         create_default_6x6_board(), batch, model0, xy_same_focal=False,
         disabled_distortions=1, fixed_focal=False,
+        device="cpu",
     )
     assert model.params[5] == 0.0

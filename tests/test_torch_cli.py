@@ -109,7 +109,7 @@ def check_against_reference(port, jax, cam_num):
 def mono(tmp_path_factory):
     root = tmp_path_factory.mktemp("cli")
     ds = str(root / "dataset")
-    write_euroc_dataset(ds, GenericModel("eucm", GT, 512, 512), n_frames=22, seed=3, noise=1.5)
+    write_euroc_dataset(ds, GenericModel("eucm", GT, 512, 512), n_frames=22, seed=3, noise=1.5, device="cpu")
     port, jax, log = run_both(root, ds, ["--model", "eucm", "--seed", "1"])
     return dict(root=root, ds=ds, port=port, jax=jax, log=log)
 

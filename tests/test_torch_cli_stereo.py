@@ -22,6 +22,7 @@ def test_cli_stereo_matches_reference(tmp_path):
     write_euroc_dataset(
         ds, GenericModel("eucm", GT, 512, 512), n_frames=14, cam_num=2,
         extrinsics=rig, seed=6, noise=1.5,
+        device="cpu",
     )
     port, jax, _ = run_both(tmp_path, ds, ["--model", "eucm", "--cam-num", "2", "--seed", "3"])
     ext = check_against_reference(port, jax, 2)

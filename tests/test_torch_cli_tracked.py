@@ -31,7 +31,7 @@ torch.set_num_threads(2)
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("cli_tracked")
     ds = str(root / "dataset")
-    write_euroc_dataset(ds, GenericModel("eucm", GT, 512, 512), n_frames=22, seed=3, noise=1.5)
+    write_euroc_dataset(ds, GenericModel("eucm", GT, 512, 512), n_frames=22, seed=3, noise=1.5, device="cpu")
     base = [ds, "--no-rerun", "--model", "eucm", "--seed", "1"]
     out = {}
     for name, fn, extra, env in (

@@ -71,6 +71,60 @@ def test_kernel_matches_plain_random(card, shape, scale, dtype):
     assert got.device.type == "cuda" and torch.equal(got, want)
 
 
+def _mixed(shape, seed):
+    """Even frames full-range random, odd frames low-contrast (gray levels
+    100..125), where the contrast test decides."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, shape, np.uint8)
+    x[1::2] = rng.integers(100, 126, x[1::2].shape, np.uint8)
+    return torch.as_tensor(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,scale,min_contrast",
+    [((2, 480, 752), 1, 20.0), ((2, 480, 752), 2, 20.0),  # EuRoC frames
+     ((2, 480, 752), 1, 20.5), ((2, 480, 752), 2, 20.5),  # non-integer contrast
+     ((2, 480, 752), 1, 0.0), ((2, 479, 751), 2, 0.0),    # zero contrast
+     ((65600, 4, 8), 1, 20.0),                            # > 65,535 frames
+     ((3, 40, 22), 2, 20.0), ((3, 41, 23), 2, 20.5)],     # narrower than a block
+)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_kernel_matches_plain_edge_cases(card, shape, scale, min_contrast, dtype):
+    x = _mixed(shape, seed=shape[0] + shape[2]).to(dtype).to(card)
+    if dtype == torch.float32:
+        g = torch.Generator(device=card).manual_seed(2)
+        x = x + 0.9 * torch.rand(shape, generator=g, device=card)
+    before = threshold_front_cuda.launches
+    got = threshold_front(x, scale, min_contrast=min_contrast)
+    want = threshold_front_plain(x, scale, min_contrast=min_contrast)
+    torch.cuda.synchronize()
+    assert threshold_front_cuda.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,scale", [(512, 1), (1024, 2)])
+def test_kernel_is_one_launch_and_allocates_only_the_output(card, size, scale):
+    """One call is one kernel launch (counted by the library where it
+    launches), and the only memory it takes is the output (the caching
+    allocator rounds to 512 B)."""
+    from ccrs_tpu_torch.ops.threshold_cuda import kernel_launches
+
+    x = _random((64, size, size)).to(card)
+    threshold_front_cuda(x, scale)  # build and load the library first
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    launched = kernel_launches()
+    out = threshold_front_cuda(x, scale)
+    torch.cuda.synchronize()
+    assert kernel_launches() == launched + 1
+    held = torch.cuda.memory_allocated(card) - base
+    assert torch.cuda.max_memory_allocated(card) - base == held
+    assert out.numel() <= held < out.numel() + 512
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("size,scale", [(512, 1), (1024, 2)])
 def test_kernel_matches_plain_boards(card, size, scale):
@@ -95,7 +149,7 @@ def test_kernel_rejects_what_it_does_not_take(card):
 def test_detector_on_card_matches_cpu(card):
     frames = _frames(512, 6, noise=1.5)
     board = create_default_6x6_board()
-    cpu = TagDetector("t36h11", track=False).detect_batch(None, board, dev_images=frames)
+    cpu = TagDetector("t36h11", track=False, device="cpu").detect_batch(None, board, dev_images=frames)
     gpu = TagDetector("t36h11", track=False, device=card).detect_batch(
         None, board, dev_images=frames.to(card)
     )
@@ -112,7 +166,7 @@ def test_tracked_detector_on_card_matches_cpu(card):
     threshold kernel launches inside the tracked run."""
     frames = _frames(512, 48, noise=1.5)
     board = create_default_6x6_board()
-    cpu_det, gpu_det = TagDetector("t36h11"), TagDetector("t36h11", device=card)
+    cpu_det, gpu_det = TagDetector("t36h11", device="cpu"), TagDetector("t36h11", device=card)
     cpu = cpu_det.detect_batch(None, board, dev_images=frames)
     before = threshold_front_cuda.launches
     gpu = gpu_det.detect_batch(None, board, dev_images=frames.to(card))
@@ -210,7 +264,8 @@ def test_cli_on_card_matches_cpu(card, tmp_path):
     from ccrs_tpu_torch.testdata import write_euroc_dataset
 
     ds = str(tmp_path / "dataset")
-    write_euroc_dataset(ds, GenericModel("eucm", GT, 512, 512), n_frames=16, seed=3, noise=1.5)
+    write_euroc_dataset(ds, GenericModel("eucm", GT, 512, 512), n_frames=16, seed=3, noise=1.5,
+                        device="cpu")
     cache = str(tmp_path / "cache")
     base = [ds, "--model", "eucm", "--no-rerun", "--seed", "1"]
     _cli(base + ["--platform", "cpu", "--detection-cache", cache, "-o", "cpu"], tmp_path)

@@ -33,7 +33,7 @@ N_FRAMES = 16
 
 
 def _cold():
-    return TagDetector("t36h11", track=False)
+    return TagDetector("t36h11", track=False, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +62,7 @@ def test_tracked_load_matches_reference(dataset):
     """Both packages' default loaders (tracking on, chunks streamed into a
     tracked session) on the same PNGs: ids exact, corners within 1e-3 px."""
     ref = jax_load_euroc(dataset["ds"], JaxDetector("t36h11"), jax_board())[0]
-    det = TagDetector("t36h11")
+    det = TagDetector("t36h11", device="cpu")
     assert det.track
     port = dl.load_euroc(dataset["ds"], det, create_default_6x6_board())[0]
     assert det.stats["frames"] == N_FRAMES and det.stats["waves"] > 0
@@ -98,7 +98,7 @@ def test_load_general_timestamps(dataset, tmp_path):
 
 def test_missing_folder_gives_empty_batch(dataset):
     b = dl.load_euroc(
-        str(dataset["root"] / "nope"), TagDetector("t36h11"), create_default_6x6_board()
+        str(dataset["root"] / "nope"), TagDetector("t36h11", device="cpu"), create_default_6x6_board()
     )[0]
     assert b.n_frames == 0 and b.p2d.shape == (0, 144, 2)
 
@@ -111,7 +111,7 @@ def test_reference_cache_loads_in_port(dataset, monkeypatch):
 
     monkeypatch.setattr(dl, "_detect_sequence", no_detection)
     b = dl.load_euroc(
-        dataset["ds"], TagDetector("t36h11"), create_default_6x6_board(),
+        dataset["ds"], TagDetector("t36h11", device="cpu"), create_default_6x6_board(),
         cache_dir=dataset["cache"],
     )[0]
     ref = dataset["ref"]
@@ -122,7 +122,7 @@ def test_reference_cache_loads_in_port(dataset, monkeypatch):
 
 def test_port_cache_roundtrip(dataset, tmp_path):
     cache = str(tmp_path / "c")
-    det, board = TagDetector("t36h11"), create_default_6x6_board()
+    det, board = TagDetector("t36h11", device="cpu"), create_default_6x6_board()
     paths = dl._list_images(os.path.join(dataset["ds"], "mav0", "cam0", "data", "*"), 0, 4)
     b1 = dl.load_euroc(dataset["ds"], det, board, step=4, cache_dir=cache)[0]
     assert os.listdir(cache) == [os.path.basename(dl._cache_path(cache, 0, paths, det, board))]
@@ -141,7 +141,7 @@ def test_jpg_input_and_missing_decoder(dataset, tmp_path, monkeypatch):
     d = tmp_path / "j" / "mav0" / "cam0" / "data"
     d.mkdir(parents=True)
     iio.imwrite(str(d / "10000000000.jpg"), img, quality=95)
-    b = dl.load_euroc(str(tmp_path / "j"), TagDetector("t36h11"), create_default_6x6_board())[0]
+    b = dl.load_euroc(str(tmp_path / "j"), TagDetector("t36h11", device="cpu"), create_default_6x6_board())[0]
     assert b.n_frames == 1 and b.time_ns[0] == 10_000_000_000
     assert b.mask[0].sum() >= 24
 
@@ -163,7 +163,7 @@ def test_recorder_gets_every_frame(dataset):
         def log_camera_image(self, cam_idx, t_ns, img, dets):
             self.calls.append((cam_idx, t_ns, img, dets))
 
-    det, board = TagDetector("t36h11"), create_default_6x6_board()
+    det, board = TagDetector("t36h11", device="cpu"), create_default_6x6_board()
     rec = FakeRecorder(active=True)
     b = dl.load_euroc(dataset["ds"], det, board, step=4, recorder=rec)[0]
     assert [c[1] for c in rec.calls] == list(b.time_ns)

@@ -34,6 +34,7 @@ def _render(size, n_frames):
     imgs = render_frames_device(
         gt, board, get_family("t36h11"), poses, noise=1.5,
         generator=torch.Generator().manual_seed(5),
+        device="cpu",
     ).numpy()
     return imgs, poses, gt
 
@@ -75,7 +76,7 @@ def test_refine_decode_matches_on_same_quads(frames):
 def test_cold_detector_matches(frames, size):
     imgs = frames[0] if size == 512 else _render(1024, 2)[0]
     want = JaxDetector("t36h11", track=False).detect_batch(imgs, board=jax_board())
-    got = TagDetector("t36h11", track=False).detect_batch(
+    got = TagDetector("t36h11", track=False, device="cpu").detect_batch(
         imgs, board=create_default_6x6_board()
     )
     assert len(got) == len(want)
@@ -89,7 +90,7 @@ def test_cold_detector_matches(frames, size):
 def test_single_image_detect_without_board(frames):
     imgs, _, _ = frames
     want = JaxDetector("t36h11", track=False).detect(imgs[0])
-    got = TagDetector("t36h11").detect(imgs[0])
+    got = TagDetector("t36h11", device="cpu").detect(imgs[0])
     assert sorted(got) == sorted(want)
 
 
@@ -98,9 +99,9 @@ def test_tracking_not_ported(monkeypatch):
     explicit ``track`` wins; a tracking detector opens a streaming session
     only when given a board."""
     monkeypatch.delenv("CCRS_TRACK", raising=False)
-    assert TagDetector("t36h11").track
-    assert TagDetector("t36h11", track=True).begin_tracked(None) is None
-    assert TagDetector("t36h11", track=False).begin_tracked(create_default_6x6_board()) is None
+    assert TagDetector("t36h11", device="cpu").track
+    assert TagDetector("t36h11", track=True, device="cpu").begin_tracked(None) is None
+    assert TagDetector("t36h11", track=False, device="cpu").begin_tracked(create_default_6x6_board()) is None
     monkeypatch.setenv("CCRS_TRACK", "0")
-    assert not TagDetector("t36h11").track
-    assert TagDetector("t36h11", track=True).track
+    assert not TagDetector("t36h11", device="cpu").track
+    assert TagDetector("t36h11", track=True, device="cpu").track

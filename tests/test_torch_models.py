@@ -133,6 +133,6 @@ def test_convert_from_ucm_matches_reference(target):
     j_tgt = jax_zeros(target, 512, 512)
     t_tgt = zeros_like_model(target, 512, 512)
     jax_convert(JaxModel("ucm", src, 512, 512), j_tgt)
-    convert_model(GenericModel("ucm", src, 512, 512), t_tgt)
+    convert_model(GenericModel("ucm", src, 512, 512), t_tgt, device="cpu")
     assert np.isfinite(t_tgt.params).all()
     np.testing.assert_allclose(t_tgt.params, j_tgt.params, rtol=1e-6, atol=1e-9)

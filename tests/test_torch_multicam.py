@@ -107,7 +107,7 @@ def test_init_camera_extrinsic_matches_reference():
     board, cams, batches, rts = _rig(2)
     _, _, _, t_rts = _port_inputs(board, cams, batches, rts)
     want = jax_init_ext(rts)
-    got = init_camera_extrinsic(t_rts)
+    got = init_camera_extrinsic(t_rts, device="cpu")
     assert len(got) == 2
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.rvec, w.rvec, rtol=0, atol=1e-6)
@@ -121,11 +121,11 @@ def test_init_camera_extrinsic_matches_reference():
 def test_joint_ba_matches_reference(n_cams):
     board, cams, batches, rts = _rig(n_cams)
     t_board, t_cams, t_batches, t_rts = _port_inputs(board, cams, batches, rts)
-    t_init = init_camera_extrinsic(t_rts)
+    t_init = init_camera_extrinsic(t_rts, device="cpu")
     j_init = [JaxRvecTvec(t.rvec, t.tvec) for t in t_init]
     kw = dict(xy_same_focal=False, disabled_distortions=0, cam0_fixed_focal=False)
     want = jax_calib_all(board, cams, j_init, rts, batches, **kw)
-    got = calib_all_camera_with_extrinsics(t_board, t_cams, t_init, t_rts, t_batches, **kw)
+    got = calib_all_camera_with_extrinsics(t_board, t_cams, t_init, t_rts, t_batches, **kw, device="cpu")
     assert want is not None and got is not None
     (j_models, j_ext, j_poses), (t_models, t_ext, t_poses) = want, got
     assert sorted(t_poses) == sorted(j_poses)
@@ -152,10 +152,11 @@ def test_ba_solve_multi_pins_cam0_and_fixed_focal():
     holds cam0's fx at its input value."""
     board, cams, batches, rts = _rig(2, F=10, seed=5)
     t_board, t_cams, t_batches, t_rts = _port_inputs(board, cams, batches, rts)
-    t_init = init_camera_extrinsic(t_rts)
+    t_init = init_camera_extrinsic(t_rts, device="cpu")
     out = calib_all_camera_with_extrinsics(
         t_board, t_cams, t_init, t_rts, t_batches, xy_same_focal=False,
         disabled_distortions=0, cam0_fixed_focal=True,
+        device="cpu",
     )
     models, ext, _ = out
     assert models[0].params[0] == t_cams[0].params[0]

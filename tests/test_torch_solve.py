@@ -169,7 +169,7 @@ def test_convert_model_grid_fit_matches():
     jt = jax_zeros("ucm", 512, 512)
     jax_convert(src, jt, 0)
     tt = zeros_like_model("ucm", 512, 512)
-    convert_model(model_from_ref(src), tt, 0)
+    convert_model(model_from_ref(src), tt, 0, device="cpu")
     np.testing.assert_allclose(tt.params, jt.params, rtol=1e-8)
 
 

@@ -48,6 +48,7 @@ def _render(n):
     imgs = render_frames_device(
         GenericModel("eucm", GT, 512, 512), board, get_family("t36h11"), poses,
         noise=1.0, generator=torch.Generator().manual_seed(3),
+        device="cpu",
     )
     return board, imgs
 
@@ -55,11 +56,11 @@ def _render(n):
 @pytest.fixture(scope="module")
 def seq12():
     board, imgs = _render(12)
-    dets = TagDetector("t36h11", track=False).detect_batch(None, board, dev_images=imgs)
+    dets = TagDetector("t36h11", track=False, device="cpu").detect_batch(None, board, dev_images=imgs)
     batch = FrameBatch.from_detections(dets, list(range(12)), board, 512, 512)
     model0 = GenericModel("eucm", [210.0, 210.0, 256.0, 256.0, 0.6, 1.0], 512, 512)
     cold = calib_camera(board, batch, model0, xy_same_focal=False,
-                        disabled_distortions=0, fixed_focal=False)
+                        disabled_distortions=0, fixed_focal=False, device="cpu")
     assert cold is not None
     return board, batch, cold
 
@@ -84,6 +85,7 @@ def test_warm_start_matches_cold_optimum(seq12):
     model_w, rt_w = calib_camera(
         board, batch, model_c.copy(), xy_same_focal=False, disabled_distortions=0,
         fixed_focal=False, warm_poses=poses, warm_valid=valid,
+        device="cpu",
     )
     np.testing.assert_allclose(model_w.params, model_c.params, atol=1e-6)
     for i in rt_c:
@@ -102,6 +104,7 @@ def test_skip_pose_init_matches_cold_optimum(seq12):
     model_w, rt_w = calib_camera(
         board, batch, model_c.copy(), xy_same_focal=False, disabled_distortions=0,
         fixed_focal=False, warm_poses=poses, warm_valid=np.ones(F), skip_pose_init=True,
+        device="cpu",
     )
     np.testing.assert_allclose(model_w.params, model_c.params, atol=1e-6)
     for i in rt_c:
@@ -109,7 +112,7 @@ def test_skip_pose_init_matches_cold_optimum(seq12):
         np.testing.assert_allclose(_rot(rt_w[i].rvec), _rot(rt_c[i].rvec), atol=1e-6)
         np.testing.assert_allclose(rt_w[i].tvec, rt_c[i].tvec, atol=1e-6)
     with pytest.raises(ValueError):
-        calib_camera(board, batch, model_c, False, 0, False, skip_pose_init=True)
+        calib_camera(board, batch, model_c, False, 0, False, skip_pose_init=True, device="cpu")
 
 
 def test_fill_poses_lerp_rvec_double_cover():
@@ -140,7 +143,7 @@ def test_fill_poses_lerp_rvec_double_cover():
 def _pipeline(board, imgs, speculate, gen_seed=7):
     """Tracked detection (+ the speculation hook) -> FrameBatch -> ladder."""
     times = list(range(len(imgs)))
-    det = TagDetector("t36h11")
+    det = TagDetector("t36h11", device="cpu")
     gen = torch.Generator().manual_seed(gen_seed)
     spec = SpeculativeCalib(board, times, zeros_like_model("eucm"), CalibParams(), gen, 512, 512)
     if speculate:
@@ -150,6 +153,7 @@ def _pipeline(board, imgs, speculate, gen_seed=7):
     result = calibrate_camera_with_retries(
         board, batch, zeros_like_model("eucm"), CalibParams(), gen,
         warm_provider=spec.take if speculate else None,
+        device="cpu",
     )
     return result, spec, det, gen
 
@@ -169,7 +173,7 @@ def test_speculative_subsampled_matches_cold(seq24, monkeypatch):
 def test_speculative_long_gap_keeps_pnp(seq24):
     board, imgs = seq24
     solved = [0, 1, 2, 19, 20, 21]
-    dets = TagDetector("t36h11", track=False).detect_batch(
+    dets = TagDetector("t36h11", track=False, device="cpu").detect_batch(
         None, board, dev_images=imgs[solved]
     )
     results = [dict() for _ in range(22)]
@@ -212,6 +216,7 @@ def test_failed_warm_trial_leaves_the_ladder_unchanged(seq12):
         res = calibrate_camera_with_retries(
             board, batch, zeros_like_model("eucm"), CalibParams(), gen,
             warm_provider=provider,
+            device="cpu",
         )
         return res, gen.get_state()
 
@@ -244,6 +249,7 @@ def test_spec_error_is_kept_and_ladder_runs_cold(seq12, monkeypatch):
     model, _ = calibrate_camera_with_retries(
         board, batch, zeros_like_model("eucm"), CalibParams(), gen,
         warm_provider=spec.take,
+        device="cpu",
     )
     assert not calibrate_camera_with_retries.last_warm_offered
     assert abs(model.params[0] - GT[0]) / GT[0] < 0.01
@@ -254,7 +260,7 @@ def test_concurrent_speculations_and_ladder(seq24, seq12):
     ladder on three threads at once, with a short switch interval, give
     exactly what each gives alone."""
     board, imgs = seq24
-    dets = TagDetector("t36h11", track=False).detect_batch(None, board, dev_images=imgs)
+    dets = TagDetector("t36h11", track=False, device="cpu").detect_batch(None, board, dev_images=imgs)
     halves = [dets[:12], dets[12:]]
     _, batch12, _ = seq12
 
@@ -266,6 +272,7 @@ def test_concurrent_speculations_and_ladder(seq24, seq12):
         return calibrate_camera_with_retries(
             board, batch12, zeros_like_model("eucm"), CalibParams(),
             torch.Generator().manual_seed(2),
+            device="cpu",
         )[0].params
 
     alone = []

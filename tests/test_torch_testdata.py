@@ -55,6 +55,7 @@ def test_noise_free_render_matches(size):
     got = TT.render_frames_device(
         GenericModel("eucm", params, size, size), create_default_6x6_board(),
         get_family("t36h11"), poses, noise=0.0,
+        device="cpu",
     )
     assert got.dtype == torch.uint8 and got.shape == want.shape
     diff = np.abs(got.numpy().astype(np.int32) - want)
@@ -67,6 +68,7 @@ def test_noise_needs_a_generator():
         TT.render_frames_device(
             GenericModel("eucm", GT, 64, 64), create_default_6x6_board(),
             get_family("t36h11"), np.zeros((1, 6)), noise=1.0,
+            device="cpu",
         )
 
 
@@ -79,6 +81,7 @@ def test_seeded_noise_is_reproducible():
         return TT.render_frames_device(
             model, board, get_family("t36h11"), poses, noise=1.5,
             generator=torch.Generator().manual_seed(seed),
+            device="cpu",
         )
 
     assert torch.equal(render(3), render(3))

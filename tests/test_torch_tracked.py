@@ -59,7 +59,7 @@ def run_both(imgs):
     jb = jax_board()
     jdet = JaxDetector("t36h11", track=True)
     want = jdet.detect_batch(imgs, board=jb)
-    det = TagDetector("t36h11")
+    det = TagDetector("t36h11", device="cpu")
     assert det.track  # the default
     got = det.detect_batch(imgs, board=board_from_ref(jb))
     return got, want, det.stats, jdet.stats

@@ -37,6 +37,7 @@ def _render(n, seed, noise, **pose_kw):
     return render_frames_device(
         GenericModel("eucm", GT, 512, 512), board, get_family("t36h11"), poses,
         noise=noise, generator=torch.Generator().manual_seed(seed),
+        device="cpu",
     )
 
 
@@ -58,17 +59,17 @@ def bench_like():
 
 @pytest.fixture(scope="module")
 def whole(bench_like, board):
-    det = TagDetector("t36h11")
+    det = TagDetector("t36h11", device="cpu")
     return det.detect_batch(None, board, dev_images=bench_like), det.stats
 
 
 def _tracked(frames, board, det=None):
-    det = det or TagDetector("t36h11", track=True)
+    det = det or TagDetector("t36h11", track=True, device="cpu")
     return det.detect_batch(None, board, dev_images=frames), det
 
 
 def _cold(frames, board):
-    return TagDetector("t36h11", track=False).detect_batch(None, board, dev_images=frames)
+    return TagDetector("t36h11", track=False, device="cpu").detect_batch(None, board, dev_images=frames)
 
 
 def test_track_recall_superset(video, board):
@@ -96,7 +97,7 @@ def test_track_bounded_staleness_and_fast_path(bench_like, board, whole):
         for tid in m:
             run_len[tid] = run_len.get(tid, 0) + 1
             worst = max(worst, run_len[tid])
-    assert worst <= TagDetector("t36h11").cold_every + 4
+    assert worst <= TagDetector("t36h11", device="cpu").cold_every + 4
     assert n_missed <= 0.05 * n_cold, (n_missed, n_cold)
     assert sum(len(t) for t in trk) >= n_cold
     assert stats["cold_frames"] <= len(trk) // 3 and stats["trigger_frames"] <= 8, stats
@@ -112,7 +113,7 @@ def test_track_discontinuous_falls_back(video, board):
 
 
 def test_track_carry_across_calls(bench_like, board, whole):
-    det = TagDetector("t36h11")
+    det = TagDetector("t36h11", device="cpu")
     parts = _tracked(bench_like[:24], board, det)[0] + _tracked(bench_like[24:], board, det)[0]
     for f, (a, b) in enumerate(zip(whole[0], parts)):
         assert len(set(a) ^ set(b)) <= 2, f"frame {f}: {set(a) ^ set(b)}"
@@ -125,7 +126,7 @@ def _padded_tail(frames, start, pad):
 
 
 def test_session_streaming_matches_whole_batch(bench_like, board, whole):
-    det = TagDetector("t36h11")
+    det = TagDetector("t36h11", device="cpu")
     s = det.begin_tracked(board)
     s.feed(bench_like[:20])
     s.feed(bench_like[20:40])
@@ -145,13 +146,13 @@ def test_session_prealloc_buffer(bench_like, board):
     """With an n_frames hint feeds land in a preallocated buffer; the
     results equal the buffer-and-concatenate composition exactly."""
     tail = _padded_tail(bench_like, 40, 12)
-    s = TagDetector("t36h11").begin_tracked(board, n_frames=48)
+    s = TagDetector("t36h11", device="cpu").begin_tracked(board, n_frames=48)
     s.feed(bench_like[:20])
     assert s._buf is not None and not s.chunks and s._buf.shape[0] == 60
     s.feed(bench_like[20:40])
     s.feed(tail, n_valid=8)
     res_hint = s.finalize()
-    s2 = TagDetector("t36h11").begin_tracked(board)
+    s2 = TagDetector("t36h11", device="cpu").begin_tracked(board)
     s2.feed(bench_like[:20])
     assert s2._buf is None and len(s2.chunks) == 1
     s2.feed(bench_like[20:40])
@@ -167,7 +168,7 @@ def test_session_prealloc_buffer(bench_like, board):
 
 
 def test_session_padding_not_in_carry(bench_like, board):
-    det = TagDetector("t36h11")
+    det = TagDetector("t36h11", device="cpu")
     s = det.begin_tracked(board)
     s.feed(_padded_tail(bench_like, 0, 12), n_valid=48)
     res = s.finalize()
@@ -186,7 +187,7 @@ def test_session_padding_not_in_carry(bench_like, board):
 
 def test_session_short_chunks(video, board):
     cold = _cold(video, board)
-    s = TagDetector("t36h11").begin_tracked(board)
+    s = TagDetector("t36h11", device="cpu").begin_tracked(board)
     s.feed(video[:5])
     s.feed(video[5:11])
     s.feed(video[11:])  # 3 frames: below the tracking minimum
@@ -197,7 +198,7 @@ def test_session_short_chunks(video, board):
 
 
 def test_session_provisional_fires_once_with_all_frames(video, board):
-    det = TagDetector("t36h11")
+    det = TagDetector("t36h11", device="cpu")
     calls = []
     det.on_provisional = calls.append
     s = det.begin_tracked(board)
@@ -210,13 +211,13 @@ def test_session_provisional_fires_once_with_all_frames(video, board):
 
 
 def test_no_audits_no_speculation(video, board, monkeypatch):
-    det = TagDetector("t36h11")
+    det = TagDetector("t36h11", device="cpu")
     fired = []
     det.on_provisional = lambda res: fired.append(len(res))
     det.detect_batch(None, board, dev_images=video)
     assert det.stats["trigger_frames"] > 0 and fired == [14]
     monkeypatch.setattr(audit_mod.AuditPolicy, "plan_round", lambda self, *a: None)
-    det2 = TagDetector("t36h11")
+    det2 = TagDetector("t36h11", device="cpu")
     fired2 = []
     det2.on_provisional = lambda res: fired2.append(len(res))
     det2.detect_batch(None, board, dev_images=video)
@@ -231,7 +232,7 @@ def test_hook_error_is_recorded_and_debug_follows_env(video, board, monkeypatch)
         raise ValueError("hook failed")
 
     monkeypatch.setenv("CCRS_TRACK_DEBUG", "1")
-    det = TagDetector("t36h11")
+    det = TagDetector("t36h11", device="cpu")
     det.on_provisional = boom
     res = det.detect_batch(None, board, dev_images=video)
     assert len(res) == 14
