@@ -7,9 +7,11 @@ initialized by a pose-graph solve over the frames both cameras saw (Huber
 0.5 SE3 residuals on the dense LM core), then one joint Schur BA runs over
 all cameras' intrinsics, the camera extrinsics and the shared board poses.
 
-The port runs the joint solve on one device, in float64 (``ba_solve_multi``);
-the frame-sharded multi-device branch of ``ccrs_tpu`` waits for the
-multi-GPU slice (ROADMAP A.11).
+The joint solve runs in float64.  When the device mesh
+(``parallel.mesh.make_mesh``) holds more than one device of the requested
+device's type and F is at least its size, it is frame-sharded over the
+mesh (``multi_ba_sharded``), as ``ccrs_tpu`` shards it over
+``jax.devices()``; otherwise it runs on one device (``ba_solve_multi``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from ..board import Board
 from ..models import GenericModel
 from ..models.projections import project_fn
+from ..parallel.mesh import mesh_for, multi_ba_sharded
 from ..solve import se3
 from ..solve.lm import LMOptions, ba_solve_multi, expand_theta, lm_solve, reduce_params
 from ..types import RvecTvec
@@ -88,7 +91,8 @@ def calib_all_camera_with_extrinsics(
     device="cuda",
 ) -> Optional[Tuple[List[GenericModel], List[RvecTvec], Dict[int, RvecTvec]]]:
     """One joint problem over all cameras (``src/util.rs:567-715``) on
-    ``device``.
+    ``device``, frame-sharded over the mesh when it holds more than one
+    device of that type (see the module docstring).
 
     Returns (intrinsics, T_i_0 per camera, board poses {frame: T_0_b}) or
     None if the solve diverges (the caller falls back to per-camera
@@ -151,11 +155,16 @@ def calib_all_camera_with_extrinsics(
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=F64, device=device)
 
-    res = ba_solve_multi(
+    args = (
         project_fn(name), t(theta0), t(ext0), t(poses0), t(board.p3d), t(p2d),
         t(w), t(lo), t(hi), t(free), t(cam_frame_valid), t(frame_valid),
-        one_focal=xy_same_focal, huber_delta=1.0,
     )
+    mesh = mesh_for(device)
+    if len(mesh) > 1 and F >= len(mesh):
+        # frame-sharded joint solve: one reduced system per LM iteration
+        res = multi_ba_sharded(*args, one_focal=xy_same_focal, huber_delta=1.0, mesh=mesh)
+    else:
+        res = ba_solve_multi(*args, one_focal=xy_same_focal, huber_delta=1.0)
     if not np.isfinite(float(res.cost)):
         return None
 

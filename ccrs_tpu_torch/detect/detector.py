@@ -14,6 +14,11 @@ decode buffer is sized to the chunk's largest quad count.  With a board,
 (detect/tracked.py; ``track=False`` or ``CCRS_TRACK=0`` turns it off),
 whose anchors and audits run the cold pipeline on chosen frames.
 ``detect`` on a single image wraps the batch path.
+
+Frame sharding (``shard=``, parallel/mesh.py): the batch is split into
+contiguous shards over the mesh, and the cold pipeline runs each shard's
+chunks on that shard's device (threshold kernel, refine+decode and assist
+included).  Sharding changes placement only, never values.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..parallel.mesh import FrameShards, mesh_for, shard_frames
 from .assist import assist_candidates, assist_merge
 from .decode import refine_decode_fused_dense
 from .families import TagFamily, get_family
@@ -136,6 +142,11 @@ class TagDetector:
     cadence ``cold_every`` (``CCRS_TRACK_COLD_EVERY``, 40 frames) and the
     sparse-board threshold ``sparse_frac`` (``CCRS_TRACK_SPARSE_FRAC``,
     0.30) below which a segment is cold-detected instead of tracked.
+    ``shard``: split each batch over the device mesh (parallel/mesh.py):
+    None (default) shards when the mesh (``make_mesh()``) holds more than
+    one CUDA device, ``CCRS_SHARD_DETECT=1``/``0`` forces it on or off; a
+    batch whose size is not a multiple of the mesh size, or that lies on
+    another device type than the mesh, is not sharded.
     ``on_provisional``: optional hook called once per tracked batch with
     the provisional per-frame results, right before the audit rounds
     (calib/pipeline.SpeculativeCalib).  ``stats``: counters of the last
@@ -150,6 +161,7 @@ class TagDetector:
         max_quads: int = MAX_QUADS,
         track: bool | None = None,
         device="cuda",
+        shard: bool | None = None,
     ):
         self.family: TagFamily = (
             family if isinstance(family, TagFamily) else get_family(family)
@@ -162,10 +174,24 @@ class TagDetector:
         self.track = bool(track)
         self.cold_every = int(os.environ.get("CCRS_TRACK_COLD_EVERY", "40"))
         self.sparse_frac = float(os.environ.get("CCRS_TRACK_SPARSE_FRAC", "0.30"))
+        if shard is None:
+            env = os.environ.get("CCRS_SHARD_DETECT")
+            shard = env == "1" if env is not None else None
+        self.shard = shard
         self.on_provisional = None
         self.stats: dict = {}
         self.debug = None
         self._tstate = None
+
+    def _shard_frames(self, frames):
+        """Split a (B, ...) tensor over the mesh when sharding is on (see
+        ``shard``), B divides the mesh and the mesh has the batch's device
+        type; otherwise return it as it is."""
+        mesh = mesh_for(frames.device)
+        use = frames.device.type == "cuda" if self.shard is None else self.shard
+        if not use or len(mesh) <= 1 or frames.shape[0] % len(mesh) != 0:
+            return frames
+        return shard_frames(frames, mesh)
 
     def reset_tracking(self) -> None:
         """Drop the frame-to-frame tracking carry (call between cameras /
@@ -305,6 +331,7 @@ class TagDetector:
             if not (raw.ndim == 3 and raw.dtype == np.uint8):
                 raw = np.stack([_to_gray_f32(im) for im in raw])
             dev_all = torch.tensor(raw, device=self.device)
+        dev_all = self._shard_frames(dev_all)
         if board is not None and self.track and self.refine and dev_all.shape[0] > 0:
             from .tracked import detect_batch_tracked
 
@@ -318,7 +345,14 @@ class TagDetector:
 
         ``idx``: optional frame indices into ``dev_all`` to detect (the
         tracked path's anchors and audits); each chunk gathers its frames
-        with ``index_select`` and results come back in ``idx`` order."""
+        with ``index_select`` and results come back in ``idx`` order.
+
+        A sharded batch (``parallel.mesh.FrameShards``) runs shard by shard:
+        each shard's frames go through this pipeline on their own device."""
+        if isinstance(dev_all, FrameShards):
+            return dev_all.map_shards(
+                lambda part, local: self._detect_batch_cold(part, board, idx=local), idx
+            )
         B, H, W = dev_all.shape
         if idx is not None:
             sel = torch.as_tensor(np.asarray(idx, np.int64), device=dev_all.device)

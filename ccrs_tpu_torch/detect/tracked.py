@@ -19,6 +19,13 @@ frames.  The JAX package rounds the wave row count and the resweep wave
 count up to fixed buckets so its compiled graphs are reused; eager torch
 compiles nothing, so the port runs exactly the rows and waves it needs
 (rows never interact, and inactive rows decode nothing).
+
+Sharding (``TagDetector(shard=)``): ``finalize`` splits the whole sequence
+over the mesh once.  Anchors, cold-direct and audit sweeps then run through
+the sharded cold path, each shard's frames on its own device.  The waves
+read neighbouring frames, which may lie on different shards, so they run
+on the first shard's device: each wave gathers its rows' frames there.
+Results equal the unsharded run's bit for bit.
 """
 
 from __future__ import annotations
@@ -122,6 +129,7 @@ class TrackedSession:
         else:
             dev_full = self.chunks[0] if len(self.chunks) == 1 else torch.cat(self.chunks)
             self.chunks = []
+        dev_full = self.det._shard_frames(dev_full)
         results = _detect_tracked(self.det, dev_full, self.board, n_valid=self.n_valid)
         return results[: self.n_valid]
 

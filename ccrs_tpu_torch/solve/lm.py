@@ -121,6 +121,89 @@ def _finite_or_zero(x):
     return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
 
 
+class _LMState:
+    """The damping loop's scalars (lam, cost, the run of rejections, whether
+    any step was accepted) and its verdict on each trial step.
+
+    ``stall_lam``: a stall also needs lam to have climbed this far
+    (``LMOptions.stall_lam``); 0 stalls on the rejection count alone, the
+    rule of the JAX package's frame-sharded solvers."""
+
+    def __init__(self, cost, opts: LMOptions, stall_lam: float):
+        dev = cost.device
+        self.opts = opts
+        self.stall_lam = stall_lam
+        self.lam = torch.tensor(opts.lam0, dtype=cost.dtype, device=dev)
+        self.cost = cost
+        self.rej = torch.zeros((), dtype=torch.int64, device=dev)
+        self.acc_any = torch.zeros((), dtype=torch.bool, device=dev)
+        self.it = 0
+
+    def update(self, c_new, gsmall=None):
+        """Accept the trial iff it lowers the cost; returns (accept, done).
+        ``gsmall``: an extra convergence test (a vanished gradient)."""
+        o = self.opts
+        accept = c_new < self.cost
+        self.lam = torch.clamp(
+            torch.where(accept, self.lam * o.lam_down, self.lam * o.lam_up),
+            o.lam_min, o.lam_max,
+        )
+        converged = accept & (
+            self.cost - c_new <= o.rtol * torch.clamp(self.cost, min=1e-300)
+        )
+        if gsmall is not None:
+            converged = converged | gsmall
+        self.cost = torch.where(accept, c_new, self.cost)
+        self.rej = torch.where(accept, torch.zeros_like(self.rej), self.rej + 1)
+        self.acc_any = self.acc_any | accept
+        limit = torch.where(self.acc_any, o.max_rejects, 3 * o.max_rejects)
+        stall = (self.rej >= limit) & (self.lam >= self.stall_lam)
+        self.it += 1
+        return accept, bool(converged | stall)
+
+
+# --------------------------------------------------------------------------
+# frame shards: the BA bodies below run over an ordered device list
+# --------------------------------------------------------------------------
+
+
+def _split(x, devices, dim: int = 0):
+    """Contiguous equal shards of ``x`` along ``dim``, shard i on
+    devices[i] (one device: ``x`` itself)."""
+    n = x.shape[dim]
+    if n % len(devices):
+        raise ValueError(f"{n} frames do not split over {len(devices)} shards")
+    step = n // len(devices)
+    return [x.narrow(dim, i * step, step).to(d) for i, d in enumerate(devices)]
+
+
+def _reduce(parts, dev0):
+    """Sum per-shard tensors on the first device, in shard order."""
+    total = parts[0].to(dev0)
+    for p in parts[1:]:
+        total = total + p.to(dev0)
+    return total
+
+
+def _gather(parts, dev0):
+    """Concatenate per-shard tensors on the first device."""
+    return parts[0].to(dev0) if len(parts) == 1 else torch.cat([p.to(dev0) for p in parts])
+
+
+class _PerDevice:
+    """One copy of a replicated tensor per distinct device."""
+
+    def __init__(self, x):
+        self.x = x
+        self.copies = {}
+
+    def on(self, dev):
+        key = str(dev)
+        if key not in self.copies:
+            self.copies[key] = self.x.to(dev)
+        return self.copies[key]
+
+
 # --------------------------------------------------------------------------
 # generic dense LM (convert_model and other small problems)
 # --------------------------------------------------------------------------
@@ -161,13 +244,9 @@ def lm_solve(
         return r, (r, w)
 
     x = clamp(x0)
-    lam = torch.tensor(opts.lam0, dtype=x0.dtype, device=x0.device)
-    cost = cost_of(x)
-    rej = torch.zeros((), dtype=torch.int64, device=x0.device)
-    acc_any = torch.zeros((), dtype=torch.bool, device=x0.device)
+    st = _LMState(cost_of(x), opts, opts.stall_lam)
     eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
-    it = 0
-    while it < opts.max_iters:
+    while st.it < opts.max_iters:
         J, (r, w) = _serialized(jacfwd(r_aux, has_aux=True))(x)  # J (B, d, n)
         r2 = torch.sum(r * r, dim=-1)
         wtot = w * huber_block_weight(r2, opts.huber_delta)
@@ -176,27 +255,13 @@ def lm_solve(
         g = torch.einsum("bdi,bd,b->i", Jm, r, wtot)
         H = H + eye * (1.0 - free_m)  # unit diag for fixed -> step 0
 
-        dx = cholesky_solve_batched_small(_damped(H, lam), -g)
+        dx = cholesky_solve_batched_small(_damped(H, st.lam), -g)
         x_new = clamp(x + _finite_or_zero(dx) * free_m)
-        c_new = cost_of(x_new)
-        accept = c_new < cost
+        accept, done = st.update(cost_of(x_new))
         x = torch.where(accept, x_new, x)
-        lam = torch.clamp(
-            torch.where(accept, lam * opts.lam_down, lam * opts.lam_up),
-            opts.lam_min, opts.lam_max,
-        )
-        converged = accept & (
-            cost - c_new <= opts.rtol * torch.clamp(cost, min=1e-300)
-        )
-        cost = torch.where(accept, c_new, cost)
-        rej = torch.where(accept, torch.zeros_like(rej), rej + 1)
-        acc_any = acc_any | accept
-        limit = torch.where(acc_any, opts.max_rejects, 3 * opts.max_rejects)
-        stall = (rej >= limit) & (lam >= opts.stall_lam)
-        it += 1
-        if bool(converged | stall):
+        if done:
             break
-    return x, cost, it
+    return x, st.cost, st.it
 
 
 # --------------------------------------------------------------------------
@@ -260,9 +325,15 @@ def ba_solve(
     F*N reprojection factors become one fixed-shape residual tensor; the
     sparse normal equations a k x k Schur system plus F 6x6 solves.
     """
-    dtype, dev = theta0.dtype, theta0.device
-    w = w * frame_valid[:, None]
     opts = LMOptions(max_iters=max_iters, huber_delta=huber_delta, rtol=rtol)
+    return ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid,
+                 [theta0.device], one_focal, opts)
+
+
+def ba_frame_fns(project_fn, p3d, one_focal: bool):
+    """(residuals, jacobians) over a frame batch: ``residuals(theta, poses,
+    p2d)`` (F, N, 2) and ``jacobians`` -> ((Jt, Jp), r), Jt (F, N, 2, k),
+    Jp (F, N, 2, 6), under the Jacobian lock."""
 
     def frame_residual(theta, pose, p2d_f):
         params = expand_theta(theta, one_focal)
@@ -278,71 +349,115 @@ def ba_solve(
     jacobians = _serialized(vmap(
         jacfwd(r_aux, argnums=(0, 1), has_aux=True), in_dims=(None, 0, 0)
     ))
+    return residuals, jacobians
 
-    def cost_of(theta, poses):
-        r = residuals(theta, poses, p2d)
+
+def ba_step(jacs, theta, poses_s, p2d_s, w_s, valid_s, free, lam, devices,
+            huber_delta, mesh_rules: bool = False):
+    """One damped Schur step of the single-camera BA over frame shards.
+
+    Per shard (shard s on ``devices[s]``, Jacobians ``jacs[s]`` from
+    ``ba_frame_fns``): Huber-weighted normal blocks, one 6x6 solve per
+    frame with k+1 stacked right-hand sides, and the partial Schur sums.
+    Across shards: one reduction of the packed (U | Schur correction |
+    rhs) system on the first device, where the k x k solve runs once.
+    ``valid_s``: per-shard (F_s,) frame masks; None takes the frames that
+    carry weight.  Invalid frames get an identity block and no update.
+
+    ``mesh_rules``: a non-finite intrinsics step is zeroed before the
+    poses' back-substitution, as in the JAX package's frame-sharded
+    solvers; ``ba_solve`` back-substitutes the raw step, so such a step
+    moves no pose either.
+
+    Returns (dth (k,) with non-finite entries zeroed, the poses after the
+    step per shard).
+    """
+    dev0 = devices[0]
+    k = theta.shape[0]
+    th, fr, lm = _PerDevice(theta), _PerDevice(free), _PerDevice(lam)
+    packed, local = [], []
+    for s, d in enumerate(devices):
+        (Jt, Jp), r = jacs[s](th.on(d), poses_s[s], p2d_s[s])  # (F,N,2,k), (F,N,2,6)
+        Jt = Jt * fr.on(d)
         r2 = torch.sum(r * r, dim=-1)
-        return torch.sum(w * huber_cost(r2, huber_delta))
-
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    fv = frame_valid[:, None, None] > 0
-
-    theta = torch.clamp(theta0, lo, hi)
-    poses = poses0
-    lam = torch.tensor(opts.lam0, dtype=dtype, device=dev)
-    cost = cost_of(theta, poses)
-    rej = torch.zeros((), dtype=torch.int64, device=dev)
-    acc_any = torch.zeros((), dtype=torch.bool, device=dev)
-    it = 0
-    while it < max_iters:
-        (Jt, Jp), r = jacobians(theta, poses, p2d)  # (F,N,2,k), (F,N,2,6)
-        Jt = Jt * free
-        r2 = torch.sum(r * r, dim=-1)
-        wt = w * huber_block_weight(r2, huber_delta)  # (F, N)
+        wt = w_s[s] * huber_block_weight(r2, huber_delta)  # (F, N)
+        valid = (torch.sum(wt, dim=1) > 0).to(wt.dtype) if valid_s is None else valid_s[s]
 
         U = torch.einsum("fnri,fnrj,fn->ij", Jt, Jt, wt)  # (k, k)
         A = torch.einsum("fnri,fnrj,fn->fij", Jp, Jp, wt)  # (F, 6, 6)
         B = torch.einsum("fnri,fnrj,fn->fij", Jt, Jp, wt)  # (F, k, 6)
         g_t = torch.einsum("fnri,fnr,fn->i", Jt, r, wt)  # (k,)
         g_p = torch.einsum("fnri,fnr,fn->fi", Jp, r, wt)  # (F, 6)
-        U = U + torch.diag(1.0 - free)
 
-        Ud = _damped(U, lam)
-        # empty frames get an identity block (their step is forced to 0)
-        Ad = torch.where(fv, _damped(A, lam), eye6)
-        # one 6x6 solve per frame with k+1 stacked right-hand sides
-        sol = cholesky_solve_batched_small(
-            Ad, torch.cat([B.mT, g_p[..., None]], dim=2)
-        )
-        Ainv_Bt = sol[..., :-1]  # (F, 6, k)
-        Ainv_g = sol[..., -1]  # (F, 6)
-        S = Ud - torch.einsum("fij,fjk->ik", B, Ainv_Bt)
+        eye6 = torch.eye(6, dtype=wt.dtype, device=d)
+        Ad = torch.where(valid[:, None, None] > 0, _damped(A, lm.on(d)), eye6)
+        sol = cholesky_solve_batched_small(Ad, torch.cat([B.mT, g_p[..., None]], dim=2))
+        Ainv_Bt, Ainv_g = sol[..., :-1], sol[..., -1]  # (F, 6, k), (F, 6)
+        corr = torch.einsum("fij,fjk->ik", B, Ainv_Bt)
         rhs = -(g_t - torch.einsum("fik,fi->k", Ainv_Bt, g_p))
-        dth = cholesky_solve_batched_small(S, rhs)
-        dpo = -(Ainv_g + torch.einsum("fik,k->fi", Ainv_Bt, dth))
-        th_new = torch.clamp(theta + _finite_or_zero(dth) * free, lo, hi)
-        po_new = poses + _finite_or_zero(dpo) * frame_valid[:, None]
+        packed.append(torch.cat([U, corr, rhs[None, :]], dim=0))
+        local.append((Ainv_Bt, Ainv_g, valid))
+    tot = _reduce(packed, dev0)
+    U, corr, rhs = tot[:k], tot[k : 2 * k], tot[2 * k]
+    # unit diagonal for fixed variables, Marquardt scaling, then the
+    # correction
+    S = _damped(U + torch.diag(1.0 - free), lam) - corr
+    dth = cholesky_solve_batched_small(S, rhs)
+    if mesh_rules:
+        dth = _finite_or_zero(dth)
+    dr = _PerDevice(dth)
+    po_new = []
+    for s, d in enumerate(devices):
+        Ainv_Bt, Ainv_g, valid = local[s]
+        dpo = -(Ainv_g + torch.einsum("fik,k->fi", Ainv_Bt, dr.on(d)))
+        po_new.append(poses_s[s] + _finite_or_zero(dpo) * valid[:, None])
+    return _finite_or_zero(dth), po_new
 
-        c_new = cost_of(th_new, po_new)
-        accept = c_new < cost
+
+def ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid,
+          devices, one_focal: bool, opts: LMOptions, mesh_rules: bool = False):
+    """The single-camera LM (``ba_solve``'s arguments) with the frames split
+    into contiguous shards over ``devices``: poses and observations stay
+    on their shard, each iteration reduces one packed system (``ba_step``)
+    and the robust cost on the first device.  F must be a multiple of
+    ``len(devices)``; results on the first device.
+
+    ``mesh_rules``: the JAX package's frame-sharded rules (``ba_step``'s
+    step order, and a stall on the rejection count alone, whatever lam).
+    """
+    dev0 = devices[0]
+    lo, hi, free = lo.to(dev0), hi.to(dev0), free.to(dev0)
+    p3d_r = _PerDevice(p3d)
+    fv_s = _split(frame_valid, devices)
+    w_s = [ws * fv[:, None] for ws, fv in zip(_split(w, devices), fv_s)]
+    p2d_s = _split(p2d, devices)
+    fns = [ba_frame_fns(project_fn, p3d_r.on(d), one_focal) for d in devices]
+    jacs = [jac for _, jac in fns]
+
+    def cost_of(theta, poses_s):
+        th = _PerDevice(theta)
+        local = []
+        for s, d in enumerate(devices):
+            r = fns[s][0](th.on(d), poses_s[s], p2d_s[s])
+            r2 = torch.sum(r * r, dim=-1)
+            local.append(torch.sum(w_s[s] * huber_cost(r2, opts.huber_delta)))
+        return _reduce(local, dev0)
+
+    theta = torch.clamp(theta0.to(dev0), lo, hi)
+    poses_s = _split(poses0, devices)
+    st = _LMState(cost_of(theta, poses_s), opts, 0.0 if mesh_rules else opts.stall_lam)
+    while st.it < opts.max_iters:
+        dth, po_new = ba_step(jacs, theta, poses_s, p2d_s, w_s, fv_s, free, st.lam,
+                              devices, opts.huber_delta, mesh_rules)
+        th_new = torch.clamp(theta + dth * free, lo, hi)
+        accept, done = st.update(cost_of(th_new, po_new))
         theta = torch.where(accept, th_new, theta)
-        poses = torch.where(accept, po_new, poses)
-        lam = torch.clamp(
-            torch.where(accept, lam * opts.lam_down, lam * opts.lam_up),
-            opts.lam_min, opts.lam_max,
-        )
-        converged = accept & (
-            cost - c_new <= opts.rtol * torch.clamp(cost, min=1e-300)
-        )
-        cost = torch.where(accept, c_new, cost)
-        rej = torch.where(accept, torch.zeros_like(rej), rej + 1)
-        acc_any = acc_any | accept
-        limit = torch.where(acc_any, opts.max_rejects, 3 * opts.max_rejects)
-        stall = (rej >= limit) & (lam >= opts.stall_lam)
-        it += 1
-        if bool(converged | stall):
+        acc = _PerDevice(accept)
+        poses_s = [torch.where(acc.on(d), pn, po)
+                   for d, pn, po in zip(devices, po_new, poses_s)]
+        if done:
             break
-    return BAResult(theta, poses, cost, it)
+    return BAResult(theta, _gather(poses_s, dev0), st.cost, st.it)
 
 
 # --------------------------------------------------------------------------
@@ -399,18 +514,14 @@ def ba_solve_multi(
       cam_frame_valid: (C, F) camera c contributes frame f.
       frame_valid: (F,) frame participates at all.
     """
-    C, F, N, _ = p2d.shape
-    k = theta0.shape[1]
-    dtype, dev = theta0.dtype, theta0.device
-    M = C * k + C * 6
     opts = LMOptions(max_iters=max_iters, huber_delta=huber_delta, rtol=rtol)
-    w = w * cam_frame_valid[:, :, None] * frame_valid[None, :, None]
+    return multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
+                       cam_frame_valid, frame_valid, [theta0.device], one_focal, opts)
 
-    # e_0 is pinned to identity; its columns get a unit diagonal below
-    ext_free = torch.cat(
-        [torch.zeros((1, 6), dtype=dtype, device=dev),
-         torch.ones((C - 1, 6), dtype=dtype, device=dev)], dim=0,
-    )
+
+def multi_frame_fns(project_fn, p3d, one_focal: bool, C: int):
+    """Per camera (residuals, jacobians) over a frame batch, each taking
+    (theta_c, e_c, poses, p2d_c); jacobians -> ((Jt, Je, Jp), r)."""
 
     def cam0_residual(theta_c, e_c, pose_f, p2d_cf):
         params = expand_theta(theta_c, one_focal)
@@ -443,97 +554,137 @@ def ba_solve_multi(
         for f in fns
     ]
 
-    def cost_of(theta, ext, poses):
-        total = torch.zeros((), dtype=dtype, device=dev)
-        for c in range(C):
-            r = residuals[c](theta[c], ext[c], poses, p2d[c])
-            r2 = torch.sum(r * r, dim=-1)
-            total = total + torch.sum(w[c] * huber_cost(r2, huber_delta))
-        return total
+    return list(zip(residuals, jacobians))
 
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    fv = frame_valid[:, None, None] > 0
-    full_free = torch.cat([free.reshape(-1), ext_free.reshape(-1)])
-    unit_fixed = torch.diag(1.0 - full_free)
 
-    theta = torch.clamp(theta0, lo, hi)
-    ext = ext0
-    poses = poses0
-    lam = torch.tensor(opts.lam0, dtype=dtype, device=dev)
-    cost = cost_of(theta, ext, poses)
-    rej = torch.zeros((), dtype=torch.int64, device=dev)
-    acc_any = torch.zeros((), dtype=torch.bool, device=dev)
-    it = 0
-    while it < max_iters:
-        U = torch.zeros((M, M), dtype=dtype, device=dev)
-        g_x = torch.zeros((M,), dtype=dtype, device=dev)
-        A = torch.zeros((F, 6, 6), dtype=dtype, device=dev)
-        B = torch.zeros((F, M, 6), dtype=dtype, device=dev)
-        g_p = torch.zeros((F, 6), dtype=dtype, device=dev)
-        for c in range(C):
-            (Jt, Je, Jp), r = jacobians[c](theta[c], ext[c], poses, p2d[c])
-            Jt = Jt * free[c]
-            Je = Je * ext_free[c]
-            r2 = torch.sum(r * r, dim=-1)
-            wt = w[c] * huber_block_weight(r2, huber_delta)  # (F, N)
+def _multi_shard_blocks(fns, theta, ext, poses, p2d, w, free, ext_free, huber_delta):
+    """One shard's joint normal blocks over its F_s frames: U (M, M), g_x
+    (M,) and the board-pose blocks A (F_s, 6, 6), B (F_s, M, 6), g_p
+    (F_s, 6), M = C*k + 6C (intrinsics, then extrinsics)."""
+    C, k = theta.shape
+    M = C * k + C * 6
+    Floc = poses.shape[0]
+    dtype, dev = theta.dtype, theta.device
+    U = torch.zeros((M, M), dtype=dtype, device=dev)
+    g_x = torch.zeros((M,), dtype=dtype, device=dev)
+    A = torch.zeros((Floc, 6, 6), dtype=dtype, device=dev)
+    B = torch.zeros((Floc, M, 6), dtype=dtype, device=dev)
+    g_p = torch.zeros((Floc, 6), dtype=dtype, device=dev)
+    for c in range(C):
+        (Jt, Je, Jp), r = fns[c][1](theta[c], ext[c], poses, p2d[c])
+        Jt = Jt * free[c]
+        Je = Je * ext_free[c]
+        r2 = torch.sum(r * r, dim=-1)
+        wt = w[c] * huber_block_weight(r2, huber_delta)  # (F, N)
 
-            ti = c * k
-            ei = C * k + c * 6
-            Ute = torch.einsum("fnri,fnrj,fn->ij", Jt, Je, wt)
-            U[ti : ti + k, ti : ti + k] += torch.einsum("fnri,fnrj,fn->ij", Jt, Jt, wt)
-            U[ei : ei + 6, ei : ei + 6] += torch.einsum("fnri,fnrj,fn->ij", Je, Je, wt)
-            U[ti : ti + k, ei : ei + 6] += Ute
-            U[ei : ei + 6, ti : ti + k] += Ute.T
-            g_x[ti : ti + k] += torch.einsum("fnri,fnr,fn->i", Jt, r, wt)
-            g_x[ei : ei + 6] += torch.einsum("fnri,fnr,fn->i", Je, r, wt)
-            A += torch.einsum("fnri,fnrj,fn->fij", Jp, Jp, wt)
-            B[:, ti : ti + k, :] += torch.einsum("fnri,fnrj,fn->fij", Jt, Jp, wt)
-            B[:, ei : ei + 6, :] += torch.einsum("fnri,fnrj,fn->fij", Je, Jp, wt)
-            g_p += torch.einsum("fnri,fnr,fn->fi", Jp, r, wt)
-        U = U + unit_fixed
+        ti = c * k
+        ei = C * k + c * 6
+        Ute = torch.einsum("fnri,fnrj,fn->ij", Jt, Je, wt)
+        U[ti : ti + k, ti : ti + k] += torch.einsum("fnri,fnrj,fn->ij", Jt, Jt, wt)
+        U[ei : ei + 6, ei : ei + 6] += torch.einsum("fnri,fnrj,fn->ij", Je, Je, wt)
+        U[ti : ti + k, ei : ei + 6] += Ute
+        U[ei : ei + 6, ti : ti + k] += Ute.T
+        g_x[ti : ti + k] += torch.einsum("fnri,fnr,fn->i", Jt, r, wt)
+        g_x[ei : ei + 6] += torch.einsum("fnri,fnr,fn->i", Je, r, wt)
+        A += torch.einsum("fnri,fnrj,fn->fij", Jp, Jp, wt)
+        B[:, ti : ti + k, :] += torch.einsum("fnri,fnrj,fn->fij", Jt, Jp, wt)
+        B[:, ei : ei + 6, :] += torch.einsum("fnri,fnrj,fn->fij", Je, Jp, wt)
+        g_p += torch.einsum("fnri,fnr,fn->fi", Jp, r, wt)
+    return U, g_x, A, B, g_p
 
-        Ud = _damped(U, lam)
-        Ad = torch.where(fv, _damped(A, lam), eye6)
-        sol = cholesky_solve_batched_small(
-            Ad, torch.cat([B.mT, g_p[..., None]], dim=2)
-        )
-        Ainv_Bt = sol[..., :-1]  # (F, 6, M)
-        Ainv_g = sol[..., -1]
-        S = Ud - torch.einsum("fij,fjk->ik", B, Ainv_Bt)
-        rhs = -(g_x - torch.einsum("fik,fi->k", Ainv_Bt, g_p))
+
+def multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
+                cam_frame_valid, frame_valid, devices, one_focal: bool,
+                opts: LMOptions, mesh_rules: bool = False):
+    """The joint multi-camera LM (``ba_solve_multi``'s arguments) with the
+    frames split into contiguous shards over ``devices``: board poses stay
+    on their shard and are Schur-eliminated there; each iteration reduces
+    one packed (U | Schur correction | rhs | gradient) system of size
+    (2M+2, M) and the robust cost on the first device, where the M x M
+    solve runs once.  F must be a multiple of ``len(devices)`` (padding
+    frames carry frame_valid = 0); results on the first device.
+
+    ``mesh_rules``: stall on the rejection count alone, whatever lam (the
+    JAX package's frame-sharded rule).
+    """
+    C = p2d.shape[0]
+    k = theta0.shape[1]
+    dtype = theta0.dtype
+    M = C * k + C * 6
+    dev0 = devices[0]
+    lo, hi, free = lo.to(dev0), hi.to(dev0), free.to(dev0)
+    w = w * cam_frame_valid[:, :, None] * frame_valid[None, :, None]
+    # e_0 is pinned to identity; its columns get a unit diagonal below
+    ext_free = torch.cat(
+        [torch.zeros((1, 6), dtype=dtype, device=dev0),
+         torch.ones((C - 1, 6), dtype=dtype, device=dev0)], dim=0,
+    )
+    unit_fixed = torch.diag(1.0 - torch.cat([free.reshape(-1), ext_free.reshape(-1)]))
+    p3d_r, free_r, ext_free_r = _PerDevice(p3d), _PerDevice(free), _PerDevice(ext_free)
+    fv_s = _split(frame_valid, devices)
+    p2d_s = _split(p2d, devices, dim=1)
+    w_s = _split(w, devices, dim=1)
+    fns = [multi_frame_fns(project_fn, p3d_r.on(d), one_focal, C) for d in devices]
+    eye6 = [torch.eye(6, dtype=dtype, device=d) for d in devices]
+
+    def cost_of(theta, ext, poses_s):
+        th, ex = _PerDevice(theta), _PerDevice(ext)
+        local = []
+        for s, d in enumerate(devices):
+            total = torch.zeros((), dtype=dtype, device=d)
+            for c in range(C):
+                r = fns[s][c][0](th.on(d)[c], ex.on(d)[c], poses_s[s], p2d_s[s][c])
+                r2 = torch.sum(r * r, dim=-1)
+                total = total + torch.sum(w_s[s][c] * huber_cost(r2, opts.huber_delta))
+            local.append(total)
+        return _reduce(local, dev0)
+
+    theta = torch.clamp(theta0.to(dev0), lo, hi)
+    ext = ext0.to(dev0)
+    poses_s = _split(poses0, devices)
+    st = _LMState(cost_of(theta, ext, poses_s), opts, 0.0 if mesh_rules else opts.stall_lam)
+    while st.it < opts.max_iters:
+        th, ex, lm = _PerDevice(theta), _PerDevice(ext), _PerDevice(st.lam)
+        packed, local = [], []
+        for s, d in enumerate(devices):
+            U, g_x, A, B, g_p = _multi_shard_blocks(
+                fns[s], th.on(d), ex.on(d), poses_s[s], p2d_s[s], w_s[s],
+                free_r.on(d), ext_free_r.on(d), opts.huber_delta,
+            )
+            Ad = torch.where(fv_s[s][:, None, None] > 0, _damped(A, lm.on(d)), eye6[s])
+            sol = cholesky_solve_batched_small(Ad, torch.cat([B.mT, g_p[..., None]], dim=2))
+            Ainv_Bt, Ainv_g = sol[..., :-1], sol[..., -1]  # (F, 6, M), (F, 6)
+            corr = torch.einsum("fij,fjk->ik", B, Ainv_Bt)
+            rhs = -(g_x - torch.einsum("fik,fi->k", Ainv_Bt, g_p))
+            packed.append(torch.cat([U, corr, rhs[None, :], g_x[None, :]], dim=0))
+            local.append((Ainv_Bt, Ainv_g))
+        tot = _reduce(packed, dev0)
+        U, corr, rhs, g_x = tot[:M], tot[M : 2 * M], tot[2 * M], tot[2 * M + 1]
+        S = _damped(U + unit_fixed, st.lam) - corr
         # Jacobi-scale the reduced solve: parameter magnitudes span ~1e5
         # (focal vs distortion vs extrinsic rotation); D S D has a unit
         # diagonal and solves identically
-        d = torch.sqrt(torch.clamp(torch.diagonal(S), min=1e-12))
-        Sn = S / d[:, None] / d[None, :]
-        dx = cholesky_solve_batched_small(Sn, rhs / d) / d
-        dpo = -(Ainv_g + torch.einsum("fim,m->fi", Ainv_Bt, dx))
+        dg = torch.sqrt(torch.clamp(torch.diagonal(S), min=1e-12))
+        Sn = S / dg[:, None] / dg[None, :]
+        dx = cholesky_solve_batched_small(Sn, rhs / dg) / dg
+        dxr = _PerDevice(dx)
+        po_new = []
+        for s, d in enumerate(devices):
+            Ainv_Bt, Ainv_g = local[s]
+            dpo = -(Ainv_g + torch.einsum("fim,m->fi", Ainv_Bt, dxr.on(d)))
+            po_new.append(poses_s[s] + _finite_or_zero(dpo) * fv_s[s][:, None])
         dx = _finite_or_zero(dx)
-        dpo = _finite_or_zero(dpo)
         th_new = torch.clamp(theta + dx[: C * k].reshape(C, k) * free, lo, hi)
         ex_new = ext + dx[C * k :].reshape(C, 6) * ext_free
-        po_new = poses + dpo * frame_valid[:, None]
-
-        c_new = cost_of(th_new, ex_new, po_new)
-        accept = c_new < cost
-        theta = torch.where(accept, th_new, theta)
-        ext = torch.where(accept, ex_new, ext)
-        poses = torch.where(accept, po_new, poses)
-        lam = torch.clamp(
-            torch.where(accept, lam * opts.lam_down, lam * opts.lam_up),
-            opts.lam_min, opts.lam_max,
-        )
         # stop on a tiny relative decrease OR a vanished gradient (large
         # joint problems keep finding micro-improvements at the noise floor)
-        rel_small = cost - c_new <= opts.rtol * torch.clamp(cost, min=1e-300)
-        gsmall = torch.max(torch.abs(g_x)) <= 1e-9 * torch.clamp(cost, min=1.0)
-        converged = (accept & rel_small) | gsmall
-        cost = torch.where(accept, c_new, cost)
-        rej = torch.where(accept, torch.zeros_like(rej), rej + 1)
-        acc_any = acc_any | accept
-        limit = torch.where(acc_any, opts.max_rejects, 3 * opts.max_rejects)
-        stall = (rej >= limit) & (lam >= opts.stall_lam)
-        it += 1
-        if bool(converged | stall):
+        gsmall = torch.max(torch.abs(g_x)) <= 1e-9 * torch.clamp(st.cost, min=1.0)
+        accept, done = st.update(cost_of(th_new, ex_new, po_new), gsmall)
+        theta = torch.where(accept, th_new, theta)
+        ext = torch.where(accept, ex_new, ext)
+        acc = _PerDevice(accept)
+        poses_s = [torch.where(acc.on(d), pn, po)
+                   for d, pn, po in zip(devices, po_new, poses_s)]
+        if done:
             break
-    return MultiBAResult(theta, ext, poses, cost, it)
+    return MultiBAResult(theta, ext, _gather(poses_s, dev0), st.cost, st.it)

@@ -20,7 +20,20 @@ entry points a user calls, at the benchmark's sizes:
   in-process with ``--platform cuda`` twice: the default composition on
   every frame (the default ``--max-images 600`` truncates after
   detection), and the cold composition (``CCRS_TRACK=0 --no-speculate
-  --step 4``, 160 frames per camera).
+  --step 4``, 160 frames per camera);
+- phase mesh: the multi-device layer on the mesh of every visible card
+  (two shards of ``cuda:0`` when one is visible): the 512 phase's final
+  EUCM problem through ``make_ba_solver`` against ``ba_solve`` (theta
+  within 1e-9 relative, RMS within 1e-6 px), the cli phase's joint problem
+  through the joint BA's sharded route (``multi_ba_sharded``) against its
+  single-device route (theta and extrinsics within 1e-8, per-camera RMS
+  within 1e-6 px) and a CPU float64 re-solve, and the first 128 frames of
+  the 512 sequence through ``TagDetector(shard=True)``, tracked and cold,
+  bit for bit against the unsharded detector, with the threshold kernel's
+  launches per shard;
+- phase undistort: EuRoC cam0's undistortion map from 752x480 to 1024x1024
+  and the remap of one cli frame, on the card and on the CPU (maps within
+  1e-3 px, pixels within 1 gray level), with their times.
 
 Phases 512 and 1024 run ``TagDetector("t36h11", device="cuda")``
 (tracking on) with a ``SpeculativeCalib`` on its provisional hook ->
@@ -85,6 +98,8 @@ EUROC_CAM0 = [471.019, 470.243, 367.122, 246.741, 0.67485, 1.0]
 #: pose spread of the cli dataset; at this scale 96% of the frames keep
 #: >= 24 detected corners on the card (the phase fails below 80%)
 SPAN_CLI = 1.5
+#: frames of the 512 sequence the mesh phase detects sharded
+N_MESH_DETECT = 128
 
 
 def card_label() -> str:
@@ -381,7 +396,7 @@ def run_phase(size, n_frames, card):
         )
         if busy <= 0:
             print(f"[{size} profiled] ({card}) device time not measured: the profiler showed none")
-    return frames, 2 if size >= PYRAMID_MIN_SIDE else 1, sum(launches)
+    return frames, 2 if size >= PYRAMID_MIN_SIDE else 1, sum(launches), run
 
 
 def kernel_device_ms(torch, parts, scale):
@@ -566,10 +581,8 @@ def run_cli(tmp, name, ds, gt, rig, label, extra, env):
     """One ``cli.main`` run on the dataset, then its gates: fx and medians,
     the extrinsic against the rig, usable frames, and a CPU float64 joint
     re-solve from the card's result.  Returns the threshold launches of
-    the run."""
+    the run and the observed joint solve (arguments and result)."""
     from ccrs_tpu_torch import cli
-    from ccrs_tpu_torch.calib.multi import calib_all_camera_with_extrinsics
-    from ccrs_tpu_torch.calib.validate import reprojection_errors
     from ccrs_tpu_torch.io import object_from_json
     from ccrs_tpu_torch.models import model_from_json
     from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
@@ -640,29 +653,45 @@ def run_cli(tmp, name, ds, gt, rig, label, extra, env):
 
     # interchange gate: a float64 joint re-solve on the CPU from the card's
     # result (same observations and frame sets) lands on the same optimum
-    board, _, _, rt_in, batches = seen["args"][:5]
-    models, t_i_0, board_rt = seen["result"]
+    batches = seen["args"][4]
     usable = [float(b.frame_ok().mean()) for b in batches]
     print(f"{label} usable frames (>= 24 corners): {usable}")
     if not min(usable) >= 0.8:
         raise RuntimeError(f"{label} too few usable frames: {usable}")
 
-    def rms(ms, t, brt):
-        out_rms = []
-        for c in range(len(ms)):
-            rt = {f: t[c].compose(p) for f, p in brt.items()}
-            errs = np.concatenate([e for _, e, _ in reprojection_errors(board, batches[c], ms[c], rt)])
-            out_rms.append(float(np.sqrt(np.mean(errs**2))))
-        return out_rms
+    cpu_joint_gate(seen, seen["result"], label)
+    return launches, seen
 
-    card_rt = [{f: t_i_0[c].compose(board_rt[f]) for f in rt_in[c]} for c in range(2)]
+
+def joint_rms(board, batches, models, t_i_0, board_rt):
+    """Per-camera RMS reprojection error of a joint result."""
+    from ccrs_tpu_torch.calib.validate import reprojection_errors
+
+    out = []
+    for c in range(len(models)):
+        rt = {f: t_i_0[c].compose(p) for f, p in board_rt.items()}
+        errs = np.concatenate([e for _, e, _ in reprojection_errors(board, batches[c], models[c], rt)])
+        out.append(float(np.sqrt(np.mean(errs**2))))
+    return out
+
+
+def cpu_joint_gate(seen, result, label):
+    """A float64 joint re-solve on the CPU from ``result`` (same
+    observations and frame sets as the observed call) lands at the same
+    per-camera RMS within 1e-6 px."""
+    from ccrs_tpu_torch.calib.multi import calib_all_camera_with_extrinsics
+
+    board, _, _, rt_in, batches = seen["args"][:5]
+    models, t_i_0, board_rt = result
+    card_rt = [{f: t_i_0[c].compose(board_rt[f]) for f in rt_in[c]} for c in range(len(models))]
     t1 = time.perf_counter()
     cpu = calib_all_camera_with_extrinsics(
         board, models, t_i_0, card_rt, batches, **seen["kwargs"] | {"device": "cpu"}
     )
     if cpu is None:
         raise RuntimeError(f"{label} CPU float64 joint re-solve failed")
-    rms_card, rms_cpu = rms(models, t_i_0, board_rt), rms(*cpu)
+    rms_card = joint_rms(board, batches, models, t_i_0, board_rt)
+    rms_cpu = joint_rms(board, batches, *cpu)
     drift = max(abs(a - b) for a, b in zip(rms_card, rms_cpu))
     print(
         f"{label} CPU float64 joint re-solve: rms card {rms_card} px, "
@@ -670,7 +699,6 @@ def run_cli(tmp, name, ds, gt, rig, label, extra, env):
     )
     if not (drift < 1e-6):
         raise RuntimeError(f"{label} float64 interchange drift {drift:.3e} px")
-    return launches
 
 
 def run_cli_phase(card):
@@ -678,7 +706,7 @@ def run_cli_phase(card):
     default composition (tracked detection, speculative calibration) on
     every frame, and the cold composition (CCRS_TRACK=0, --no-speculate)
     on every 4th frame.  Returns (decoded frames per camera, threshold
-    launches of both CLI runs)."""
+    launches of both CLI runs, the default run's joint solve)."""
     from ccrs_tpu_torch.dataloader import _list_images
     from ccrs_tpu_torch.models import GenericModel
     from ccrs_tpu_torch.pngio import read_png
@@ -696,18 +724,223 @@ def run_cli_phase(card):
         )
         for name, sec in profiling.totals().items():
             print(f"[cli dataset] ({card}) {name:26s} {sec:8.3f} s")
-        launches = run_cli(
+        launches, joint = run_cli(
             tmp, "out", ds, gt, rig, f"[cli 2x{N_CLI}x752x480] ({card})", [], {}
         )
         launches += run_cli(
             tmp, "out_cold", ds, gt, rig, f"[cli cold 2x{N_CLI // 4}x752x480] ({card})",
             ["--no-speculate", "--step", "4"], {"CCRS_TRACK": "0"},
-        )
+        )[0]
         frames = []
         for c in range(2):
             paths = _list_images(os.path.join(ds, "mav0", f"cam{c}", "data", "*"), 0, 1)
             frames.append(np.stack([read_png(p) for p in paths]))
-    return frames, launches
+    return frames, launches, joint
+
+
+def single_problem(board, batch, model, rtvecs, device):
+    """The 512 phase's final EUCM problem as ``ba_solve`` arguments on
+    ``device``: the card's poses, intrinsics 1% off the card's result."""
+    import torch
+
+    from ccrs_tpu_torch.calib.single import build_bounds
+
+    F = batch.p2d.shape[0]
+    poses, fv = np.zeros((F, 6)), np.zeros(F)
+    for f, rt in rtvecs.items():
+        poses[f], fv[f] = np.concatenate([rt.rvec, rt.tvec]), 1.0
+    lo, hi = build_bounds(model, False)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=torch.float64, device=device)
+
+    return (t(model.params * 1.01), t(poses), t(board.p3d), t(batch.p2d), t(batch.mask),
+            t(lo), t(hi), t(np.ones(len(lo))), t(fv))
+
+
+def solved_model(model, res, frames):
+    """(model, rtvecs on ``frames``) from a BAResult."""
+    from ccrs_tpu_torch.types import RvecTvec
+
+    m = model.copy()
+    m.set_params(res.theta.cpu().numpy())
+    poses = res.poses.cpu().numpy()
+    return m, {f: RvecTvec(poses[f, :3], poses[f, 3:]) for f in frames}
+
+
+@contextlib.contextmanager
+def observe_shard_launches(det, counts):
+    """Count the threshold launches of each shard of ``det``'s sharded
+    cold pipeline into ``counts`` (one entry per shard)."""
+    from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
+    from ccrs_tpu_torch.parallel.mesh import FrameShards
+
+    real = det._detect_batch_cold
+    parts = []
+
+    def wrapper(dev_all, *args, **kwargs):
+        if isinstance(dev_all, FrameShards):
+            parts[:] = dev_all.parts
+            return real(dev_all, *args, **kwargs)
+        before = threshold_front_cuda.launches
+        out = real(dev_all, *args, **kwargs)
+        for i, p in enumerate(parts):
+            if p is dev_all:
+                counts[i] += threshold_front_cuda.launches - before
+        return out
+
+    det._detect_batch_cold = wrapper
+    try:
+        yield counts
+    finally:
+        del det._detect_batch_cold
+
+
+def run_mesh_phase(card, frames512, run512, board, joint):
+    """The multi-device layer on the mesh of every visible card (two shards
+    of cuda:0 when only one is visible): the 512 phase's final problem
+    through ``make_ba_solver`` against ``ba_solve``, the cli phase's joint
+    problem through the joint BA's sharded route (``multi_ba_sharded``)
+    against its single-device route and a CPU float64 re-solve, and the
+    first N_MESH_DETECT frames of the 512 sequence through
+    ``TagDetector(shard=True)``, tracked and cold, against the unsharded
+    detector.  Returns the threshold launches of the sharded detections."""
+    import torch
+
+    from ccrs_tpu_torch.calib import multi
+    from ccrs_tpu_torch.detect import TagDetector
+    from ccrs_tpu_torch.models.projections import project_fn
+    from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
+    from ccrs_tpu_torch.parallel import mesh as pmesh
+    from ccrs_tpu_torch.solve.lm import ba_solve
+
+    mesh = pmesh.make_mesh()
+    if len(mesh) == 1:
+        mesh = [mesh[0], mesh[0]]
+    n_cards = len({str(d) for d in mesh})
+    tag = f"[mesh {len(mesh)} shards on {n_cards} card(s)] ({card})"
+    print(f"{tag} mesh {[str(d) for d in mesh]}, {n_cards} distinct card(s)")
+
+    # single camera: the sharded LM against ba_solve on the card
+    batch, model, rtvecs = run512["batch"], run512["model"], run512["rtvecs"]
+    args = single_problem(board, batch, model, rtvecs, "cuda")
+    proj = project_fn("eucm")
+    want, t_one = sync_time(torch, lambda: ba_solve(proj, *args))
+    (theta0, poses0, p3d, p2d, w, lo, hi, free, fv) = args
+    (poses_p, p2d_p, w_p, fv_p), F = pmesh.pad_frames([poses0, p2d, w, fv], len(mesh))
+    got, t_sh = sync_time(torch, lambda: pmesh.make_ba_solver(proj, mesh)(
+        theta0, poses_p, p3d, p2d_p, w_p, lo, hi, free, fv_p))
+    got = got._replace(poses=got.poses[:F])
+    rel = float(((got.theta - want.theta).abs() / want.theta.abs()).max())
+    rms_sh = rms_of(board, batch, *solved_model(model, got, rtvecs))
+    rms_one = rms_of(board, batch, *solved_model(model, want, rtvecs))
+    print(
+        f"{tag} single camera, {F} frames: sharded {t_sh:.3f} s ({got.n_iters} iterations), "
+        f"unsharded ba_solve {t_one:.3f} s ({want.n_iters}); theta max rel diff {rel:.3e}, "
+        f"|rms_sharded - rms| = {abs(rms_sh - rms_one):.3e} px (rms {rms_one:.6f} px)"
+    )
+    if not (rel < 1e-9 and abs(rms_sh - rms_one) < 1e-6):
+        raise RuntimeError(f"{tag} the sharded single-camera solve left ba_solve's optimum")
+
+    # the joint BA: its sharded route against its single-device route
+    routed = []
+    real = multi.multi_ba_sharded
+    multi.multi_ba_sharded = lambda *a, **k: routed.append(len(k["mesh"])) or real(*a, **k)
+    try:
+        with pmesh.default_mesh(mesh):
+            sh, t_jsh = sync_time(torch, lambda: multi.calib_all_camera_with_extrinsics(
+                *joint["args"], **joint["kwargs"]))
+        with pmesh.default_mesh(mesh[:1]):
+            one, t_jone = sync_time(torch, lambda: multi.calib_all_camera_with_extrinsics(
+                *joint["args"], **joint["kwargs"]))
+    finally:
+        multi.multi_ba_sharded = real
+    if routed != [len(mesh)] or sh is None or one is None:
+        raise RuntimeError(f"{tag} the joint BA did not take its sharded route once: {routed}")
+    board_j, batches = joint["args"][0], joint["args"][4]
+    p_rel = max(float(np.max(np.abs(a.params - b.params) / np.abs(b.params)))
+                for a, b in zip(sh[0], one[0]))
+    e_abs = max(float(np.max(np.abs(np.concatenate([a.rvec - b.rvec, a.tvec - b.tvec]))))
+                for a, b in zip(sh[1], one[1]))
+    rms_sh = joint_rms(board_j, batches, *sh)
+    rms_one = joint_rms(board_j, batches, *one)
+    d_rms = max(abs(a - b) for a, b in zip(rms_sh, rms_one))
+    print(
+        f"{tag} joint BA, {len(batches)} cameras x {batches[0].p2d.shape[0]} frames: sharded "
+        f"route {t_jsh:.3f} s, single-device route {t_jone:.3f} s; theta max rel diff "
+        f"{p_rel:.3e}, extrinsic max diff {e_abs:.3e}, per-camera rms diff {d_rms:.3e} px"
+    )
+    if not (p_rel < 1e-8 and e_abs < 1e-8 and d_rms < 1e-6):
+        raise RuntimeError(f"{tag} the sharded joint BA left ba_solve_multi's optimum")
+    cpu_joint_gate(joint, sh, f"{tag} sharded joint BA:")
+
+    # detection: sharded equals unsharded bit for bit, tracked and cold
+    frames = frames512[:N_MESH_DETECT].contiguous()
+    launches = 0
+    for track in (True, False):
+        name = "tracked" if track else "cold"
+        base_det = TagDetector("t36h11", track=track, shard=False, device="cuda")
+        base, t_base = sync_time(torch, lambda: base_det.detect_batch(None, board, dev_images=frames))
+        det = TagDetector("t36h11", track=track, shard=True, device="cuda")
+        per_shard = [0] * len(mesh)
+        with pmesh.default_mesh(mesh), observe_shard_launches(det, per_shard):
+            threshold_front_cuda.launches = 0
+            got, t_det = sync_time(torch, lambda: det.detect_batch(None, board, dev_images=frames))
+            n = threshold_front_cuda.launches
+        launches += n
+        print(
+            f"{tag} {name} detection of {len(frames)} frames: sharded {t_det:.3f} s, "
+            f"unsharded {t_base:.3f} s; threshold kernel launches {n}, per shard {per_shard}"
+        )
+        for f, (a, b) in enumerate(zip(got, base)):
+            if sorted(a) != sorted(b) or any(not np.array_equal(a[t], b[t]) for t in a):
+                raise RuntimeError(f"{tag} {name}: frame {f} differs from the unsharded detection")
+        if track and det.stats != base_det.stats:
+            raise RuntimeError(f"{tag} tracked stats differ: {det.stats} vs {base_det.stats}")
+        if n <= 0 or min(per_shard) <= 0 or sum(per_shard) != n:
+            raise RuntimeError(f"{tag} {name}: a shard never launched the threshold kernel")
+    print(f"{tag} sharded detection == unsharded bit for bit, tracked and cold")
+    return launches
+
+
+def run_undistort_phase(card, frame):
+    """Build the undistortion map of EuRoC's cam0 and remap one cli frame
+    of 752x480 to 1024x1024, on the card and on the CPU; gates: maps within
+    1e-3 px, pixels within 1 gray level."""
+    import torch
+
+    from ccrs_tpu_torch.models import GenericModel
+    from ccrs_tpu_torch.models.undistort import (
+        estimate_new_camera_matrix_for_undistort,
+        init_undistort_map,
+        remap,
+    )
+
+    tag = f"[undistort 752x480 -> 1024x1024] ({card})"
+    model = GenericModel("eucm", EUROC_CAM0, 752, 480)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        K = estimate_new_camera_matrix_for_undistort(model, 1.0, (1024, 1024), device=dev)
+        (xmap, ymap), t_map = sync_time(
+            torch, lambda: init_undistort_map(model, K, (1024, 1024), device=dev))
+        img, t_remap = sync_time(torch, lambda: remap(frame, xmap, ymap))
+        if dev == "cuda":  # warm: CUDA events over repeated calls
+            ms_map = time_ms(torch, lambda: init_undistort_map(model, K, (1024, 1024), device=dev))
+            frame_dev = torch.as_tensor(frame, device=dev)
+            ms_remap = time_ms(torch, lambda: remap(frame_dev, xmap, ymap))
+            print(f"{tag} card: map {t_map:.4f} s, remap {t_remap:.4f} s first call; warm map "
+                  f"{ms_map:.4f} ms, remap {ms_remap:.4f} ms (CUDA events)")
+        else:
+            print(f"{tag} CPU: map {t_map:.4f} s, remap {t_remap:.4f} s")
+        out[dev] = (K, xmap.cpu(), ymap.cpu(), img.cpu())
+    (K1, x1, y1, i1), (K2, x2, y2, i2) = out["cuda"], out["cpu"]
+    d_map = float(max((x1 - x2).abs().max(), (y1 - y2).abs().max()))
+    d_pix = int((i1.int() - i2.int()).abs().max())
+    print(f"{tag} K card vs CPU max rel diff {float(np.max(np.abs(K1 - K2)) / K2[0, 0]):.3e}; "
+          f"maps max diff {d_map:.3e} px; remapped pixels max diff {d_pix} gray level(s), "
+          f"{int((i1 != i2).sum())} of {i1.numel()} differ")
+    if not (d_map < 1e-3 and d_pix <= 1 and i1.shape == (1024, 1024)):
+        raise RuntimeError(f"{tag} card and CPU undistortion differ")
 
 
 def main() -> int:
@@ -749,15 +982,19 @@ def main() -> int:
     if not ptxas:
         print("ptxas -v: no report (the kernel library was not rebuilt in this run)")
 
-    frames, scale, launches512 = run_phase(512, N_512, card)
-    k512 = check_kernel(frames, scale, card, f"{N_512}x512x512")
-    del frames
-    frames, scale, launches1024 = run_phase(1024, N_1024, card)
+    frames512, scale, launches512, run512 = run_phase(512, N_512, card)
+    k512 = check_kernel(frames512, scale, card, f"{N_512}x512x512")
+    frames, scale, launches1024, _ = run_phase(1024, N_1024, card)
     k1024 = check_kernel(frames, scale, card, f"{N_1024}x1024x1024")
     del frames
-    cli_frames, launches_cli = run_cli_phase(card)
+    cli_frames, launches_cli, joint = run_cli_phase(card)
     if launches_cli <= 0:
         raise RuntimeError("the CLI run never launched the threshold kernel")
+    from ccrs_tpu_torch.board import create_default_6x6_board
+
+    launches_mesh = run_mesh_phase(card, frames512, run512, create_default_6x6_board(), joint)
+    del frames512
+    run_undistort_phase(card, cli_frames[0][0])
     # every decoded frame of both cameras, as one sequence of 2 x 640 frames
     kcli = check_kernel(torch.as_tensor(np.concatenate(cli_frames)).cuda(), 1, card,
                         f"2 cameras x {N_CLI}x480x752")
@@ -769,10 +1006,11 @@ def main() -> int:
         "route": "cuda",
         "source": "ccrs_tpu_torch/csrc/threshold.cu",
         "replaces": "ccrs_tpu/ops/threshold_pallas.py:35",
-        "launches": launches512 + launches1024 + launches_cli,
+        "launches": launches512 + launches1024 + launches_cli + launches_mesh,
         "launches_512": launches512,
         "launches_1024": launches1024,
         "launches_cli": launches_cli,
+        "launches_mesh": launches_mesh,
         "max_abs_err": max(k["max_abs_err"] for k in shapes),
         "ms": k512["ms"],
         "plain_ms": k512["plain_ms"],

@@ -38,6 +38,7 @@ from ccrs_tpu_torch.detect import TagDetector
 from ccrs_tpu_torch.interop import frame_batch_from_ref
 from ccrs_tpu_torch.models import zeros_like_model
 from ccrs_tpu_torch.types import CalibParams
+from torch_jax_pin import fresh_jax_traces  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -28,6 +28,7 @@ from ccrs_tpu.cli import main as jax_main
 from ccrs_tpu_torch.cli import main
 from ccrs_tpu_torch.models import GenericModel
 from ccrs_tpu_torch.testdata import write_euroc_dataset
+from torch_jax_pin import fresh_jax_traces  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -23,6 +23,7 @@ from ccrs_tpu_torch.models import GenericModel
 from ccrs_tpu_torch.testdata import write_euroc_dataset
 
 from test_torch_cli import GT, _in_dir, model_json, report_numbers
+from torch_jax_pin import fresh_jax_traces  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

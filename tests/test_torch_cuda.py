@@ -1,8 +1,9 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA threshold
 kernel against its plain torch version, the cold and the tracked detector
 on the card against the CPU path, speculative calibration on the card
-against the cold ladder, and the CLI on the card against the CLI on the
-CPU.  They skip without a CUDA device.
+against the cold ladder, the CLI on the card against the CLI on the CPU,
+and the sharded solve and detection on every visible card (two shards of
+the card when one is visible) against the unsharded ones.  They skip without a CUDA device.
 
 This file imports neither jax nor ``ccrs_tpu``, so it also runs on a
 machine with the card and no JAX (``tests/conftest.py`` imports jax, hence
@@ -283,3 +284,90 @@ def test_cli_on_card_matches_cpu(card, tmp_path):
     np.testing.assert_allclose(m_gpu.params, m_cpu.params, rtol=1e-5)
     m_fresh, _ = _rms_of(tmp_path / "fresh", batch, board)
     assert abs(m_fresh.params[0] - m_cpu.params[0]) / m_cpu.params[0] < 1e-4
+
+
+def _card_mesh(card):
+    """Every visible card, or two shards of the one card."""
+    from ccrs_tpu_torch.parallel import mesh
+
+    cards = mesh.make_mesh() if card.type == "cuda" else []
+    return cards if len(cards) > 1 else [card, card]
+
+
+@pytest.mark.cuda
+def test_sharded_solve_on_the_cards(card):
+    """make_ba_solver over every visible card (two shards of the card when
+    one is visible) equals ba_solve on the card (theta 1e-9 relative) and
+    the sharded solve on two CPU shards; multi_ba_sharded of a noiseless
+    stereo problem with F = 23 (the padding path) equals ba_solve_multi on
+    the card (theta 1e-8 relative, extrinsics 1e-8)."""
+    from ccrs_tpu_torch.models.projections import project_eucm
+    from ccrs_tpu_torch.parallel import mesh
+    from ccrs_tpu_torch.solve import se3
+    from ccrs_tpu_torch.solve.lm import ba_solve, ba_solve_multi
+
+    f64 = torch.float64
+    rng = np.random.default_rng(2)
+    board = create_default_6x6_board()
+    gt = torch.tensor(GT, dtype=f64)
+    poses = smooth_sequence_poses(24, board, seed=2)
+    p3d = torch.as_tensor(board.p3d, dtype=f64)
+    pc = se3.transform(torch.as_tensor(poses[:, :3], dtype=f64)[:, None],
+                       torch.as_tensor(poses[:, 3:], dtype=f64)[:, None], p3d)[:, 0]
+    p2d0, valid = project_eucm(gt, pc)
+    p2d = p2d0 + torch.as_tensor(rng.normal(size=p2d0.shape) * 0.1)
+    w = valid.to(f64)
+    lo = torch.tensor([0.0, 0.0, 0.0, 0.0, 1e-6, 1e-6], dtype=f64)
+    hi = torch.tensor([1e4, 1e4, 512.0, 512.0, 1.0, 10.0], dtype=f64)
+    args = (gt * 1.02, torch.as_tensor(poses, dtype=f64) + 0.003, p3d, p2d, w, lo, hi,
+            torch.ones(6, dtype=f64), torch.ones(24, dtype=f64))
+    on_card = [a.to(card) for a in args]
+    want = ba_solve(project_eucm, *on_card)
+    got = mesh.make_ba_solver(project_eucm, _card_mesh(card))(*on_card)
+    cpu = mesh.make_ba_solver(project_eucm, ["cpu", "cpu"])(*args)
+    assert got.theta.device.type == card.type and got.poses.shape == (24, 6)
+    np.testing.assert_allclose(got.theta.cpu().numpy(), want.theta.cpu().numpy(), rtol=1e-9)
+    np.testing.assert_allclose(got.theta.cpu().numpy(), cpu.theta.numpy(), rtol=1e-9)
+    np.testing.assert_allclose(got.theta.cpu().numpy(), GT, rtol=1e-2)
+
+    ext1 = torch.tensor([0.02, -0.015, 0.005, -0.11, 0.002, 0.004], dtype=f64)
+    pt = torch.as_tensor(poses, dtype=f64)
+    rv, tv = se3.compose(ext1[:3].expand(24, 3), ext1[3:].expand(24, 3), pt[:, :3], pt[:, 3:])
+    p2d1, valid1 = project_eucm(gt, se3.transform(rv[:, None], tv[:, None], p3d)[:, 0])
+    F, ones = 23, torch.ones((2, 6), dtype=f64)
+    jargs = (torch.stack([gt * 1.02, gt * 0.99]),
+             torch.stack([torch.zeros(6, dtype=f64), ext1 + 2e-3]), pt[:F] + 0.003, p3d,
+             torch.stack([p2d0, p2d1])[:, :F], torch.stack([w, valid1.to(f64)])[:, :F],
+             lo.expand(2, 6), hi.expand(2, 6), ones, torch.ones((2, F), dtype=f64),
+             torch.ones(F, dtype=f64))
+    on_card = [a.to(card) for a in jargs]
+    want = ba_solve_multi(project_eucm, *on_card)
+    got = mesh.multi_ba_sharded(project_eucm, *on_card, mesh=_card_mesh(card))
+    assert got.poses.shape == (F, 6)
+    np.testing.assert_allclose(got.theta.cpu().numpy(), want.theta.cpu().numpy(), rtol=1e-8)
+    np.testing.assert_allclose(got.ext.cpu().numpy(), want.ext.cpu().numpy(), rtol=0, atol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("track", [False, True])
+def test_sharded_detect_on_the_cards(card, track):
+    """TagDetector on a mesh of every visible card (two shards of the card
+    when one is visible) shards by default, equals the unsharded detector
+    bit for bit; cold, it launches the kernel on every shard."""
+    from ccrs_tpu_torch.parallel import mesh
+
+    board = create_default_6x6_board()
+    cards = _card_mesh(card)
+    frames = _frames(512, 8 * len(cards), noise=1.5).to(card)
+    base = TagDetector("t36h11", track=track, shard=False).detect_batch(
+        None, board, dev_images=frames)
+    with mesh.default_mesh(cards):
+        det = TagDetector("t36h11", track=track)
+        before = threshold_front_cuda.launches
+        sh = det.detect_batch(None, board, dev_images=frames)
+    # cold: one chunk per shard; tracked: the anchor and audit sweeps' shards
+    assert threshold_front_cuda.launches - before >= (1 if track else len(cards))
+    for f, (a, b) in enumerate(zip(base, sh)):
+        assert sorted(a) == sorted(b), f"frame {f}"
+        for tid in a:
+            np.testing.assert_array_equal(a[tid], b[tid])

@@ -25,6 +25,7 @@ from ccrs_tpu_torch import dataloader as dl
 from ccrs_tpu_torch.board import create_default_6x6_board
 from ccrs_tpu_torch.detect import TagDetector
 from ccrs_tpu_torch.pngio import read_png
+from torch_jax_pin import fresh_jax_traces  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -18,6 +18,7 @@ from ccrs_tpu_torch.detect import TagDetector, get_family
 from ccrs_tpu_torch.detect import decode as TD
 from ccrs_tpu_torch.models import GenericModel
 from ccrs_tpu_torch.testdata import gt_corners, render_frames_device, smooth_sequence_poses
+from torch_jax_pin import fresh_jax_traces  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -30,6 +30,7 @@ from ccrs_tpu_torch.detect import detector as port_detector_mod
 from ccrs_tpu_torch.detect import get_family
 from ccrs_tpu_torch.detect import track as TT
 from ccrs_tpu_torch.interop import wave_carry_from_ref
+from torch_jax_pin import fresh_jax_traces  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
