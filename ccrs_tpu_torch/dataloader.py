@@ -12,8 +12,15 @@ start/step subsampling, the MIN_CORNERS filter and the detection cache
 (key and ``.npz`` format) match the JAX package, so a cache written by
 either package loads in the other.
 
-``.png`` files decode through :mod:`ccrs_tpu_torch.pngio` on every machine;
+``.png`` files decode through :mod:`ccrs_tpu_torch.pngio` on every machine
+(every layout of the format: 1- to 16-bit gray, colour, palette, Adam7);
 ``.jpg`` files through ``cv2``, ``imageio`` or ``PIL``, whichever imports.
+Every decoded file becomes one gray plane of the file's own sample type
+on the host, as the JAX package's ``cv2.imread`` + ``cvtColor`` makes it:
+8-bit gray, colour and palette files load as uint8 (colour through
+``_gray_like_cv2``, the integer luma of ``cv2.COLOR_BGR2GRAY``, alpha
+dropped) and take the threshold kernel's uint8 path; 16-bit gray and
+colour files load as uint16 and upload as float32 on the 0..255 scale.
 Chunks upload to a CUDA detector from pinned memory without blocking the
 host.  Eager torch needs no fixed chunk shape, so a short tail chunk keeps
 its natural size.  ``spec_factory`` registers a per-camera provisional
@@ -47,7 +54,25 @@ DETECT_BATCH = 192
 _EXTS = (".png", ".jpg")
 
 
+def _gray_like_cv2(img: np.ndarray) -> np.ndarray:
+    """One gray plane of ``img``'s own dtype from a decoded uint8 or uint16
+    file, equal to ``cv2.cvtColor(..., COLOR_BGR2GRAY)`` of what
+    ``cv2.imread(IMREAD_UNCHANGED)`` returns for it: (H, W) as is; gray +
+    alpha is its gray; RGB and RGBA (channels in RGB order, alpha dropped)
+    are ``(9798 R + 19235 G + 3735 B + 16384) >> 15``, cv2's 15-bit
+    fixed-point BT.601 luma for both sample widths."""
+    if img.ndim == 2:
+        return img
+    if img.shape[2] <= 2:
+        return np.ascontiguousarray(img[..., 0])
+    r, g, b = (img[..., c].astype(np.uint32) for c in range(3))
+    return ((9798 * r + 19235 * g + 3735 * b + 16384) >> 15).astype(img.dtype)
+
+
 def _imread_jpg(path: str) -> np.ndarray:
+    """A ``.jpg`` as one uint8 gray plane, through whichever of cv2,
+    imageio and PIL imports; each gives the same gray for a colour file
+    when it decodes the same RGB."""
     try:
         import cv2
     except ImportError:
@@ -64,7 +89,7 @@ def _imread_jpg(path: str) -> np.ndarray:
     except ImportError:
         pass
     else:
-        return iio.imread(path)
+        return _gray_like_cv2(iio.imread(path))
     try:
         from PIL import Image
     except ImportError:
@@ -73,12 +98,14 @@ def _imread_jpg(path: str) -> np.ndarray:
             "(pillow), and none of them is installed; .png files need none"
         ) from None
     with Image.open(path) as im:
-        return np.asarray(im)
+        if im.mode not in ("L", "RGB"):  # CMYK, YCbCr: as cv2 decodes them
+            im = im.convert("RGB")
+        return _gray_like_cv2(np.asarray(im))
 
 
 def _imread(path: str) -> np.ndarray:
     if path.endswith(".png"):
-        return read_png(path)
+        return _gray_like_cv2(read_png(path))
     return _imread_jpg(path)
 
 
@@ -98,8 +125,9 @@ def _path_timestamp(path: str) -> int:
 
 
 def _upload(chunk: List[np.ndarray], device: torch.device) -> torch.Tensor:
-    """Stack a chunk of decoded frames into a (B, H, W) tensor on
-    ``device``: uint8 gray as is, anything else as float32 gray."""
+    """Stack a chunk of ``_imread`` gray planes into a (B, H, W) tensor on
+    ``device``: uint8 as is, uint16 as float32 on the 0..255 scale
+    (``_to_gray_f32``: sample / 257)."""
     raw = np.stack(chunk)
     if not (raw.ndim == 3 and raw.dtype == np.uint8):
         raw = np.stack([_to_gray_f32(im) for im in raw])

@@ -5,7 +5,8 @@ Detects AprilGrid tags in a fisheye frame, solves the board pose through
 the calibrated EuRoC cam0 UCM, prints the reprojection consistency, and
 writes an undistorted 1024 x 1024 view, ``remaped_euroc.png``, to the
 working directory.  Without an image a synthetic EuRoC-like frame is
-rendered.
+rendered on the host by ``testdata.render_board_image``, as the JAX
+package's example renders it.
 
 Usage:
   python -m ccrs_tpu_torch.examples.test_pnp [image.png] [--platform cuda|cpu]
@@ -33,7 +34,7 @@ def main(argv=None):
     from ..pngio import read_png, write_png
     from ..solve.pnp import solve_pnp_planar
     from ..types import RvecTvec
-    from .convert_model import _gray_u8, synthetic_frame
+    from .convert_model import _gray_u8
 
     ap = argparse.ArgumentParser(description="detect, solve the board pose, undistort")
     ap.add_argument("image", nargs="?")
@@ -49,7 +50,11 @@ def main(argv=None):
     if args.image:
         img = _gray_u8(read_png(args.image))
     else:
-        img = synthetic_frame(model, device)
+        from ..detect import get_family
+        from ..testdata import default_sequence_poses, render_board_image
+
+        pose = default_sequence_poses(1, board, seed=2)[0]
+        img = render_board_image(model, board, get_family("t36h11"), pose[:3], pose[3:])
 
     tags = TagDetector("t36h11", device=device).detect(img)
     print(f"detected {len(tags)} tags")

@@ -140,9 +140,14 @@ def _remap(img, xmap, ymap):
 def remap(img, xmap, ymap):
     """Bilinear remap of a grayscale (H, W) or colour (H, W, C) image
     (numpy array or tensor) on the maps' device.  Returns a tensor there of
-    the image's dtype (bool becomes uint8), values clipped to 0..255 and
-    truncated, as the JAX package's ``remap`` does."""
+    the image's dtype, values clipped to 0..255 and truncated, as the JAX
+    package's ``remap`` does.  A bool image follows it too: a gray (H, W)
+    mask comes back as uint8 0/1 (the interpolated fraction truncated),
+    a colour (H, W, C) mask as bool, true wherever the interpolated value
+    is not 0."""
     img = torch.as_tensor(np.asarray(img) if not isinstance(img, torch.Tensor) else img)
-    out_dtype = torch.uint8 if img.dtype == torch.bool else img.dtype
     out = _remap(img.to(device=xmap.device, dtype=torch.float32), xmap, ymap)
-    return torch.clamp(out, 0, 255).to(out_dtype)
+    out = torch.clamp(out, 0, 255)
+    if img.dtype == torch.bool:
+        return out.to(torch.uint8) if img.ndim == 2 else out != 0
+    return out.to(img.dtype)

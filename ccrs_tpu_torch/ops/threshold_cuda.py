@@ -123,7 +123,10 @@ def threshold_front_cuda(images, scale: int = 1, tile: int = 4,
         msg = lib.ccrs_cuda_error_string(rc).decode()
         raise RuntimeError(f"threshold kernel launch failed: {msg} ({rc})")
     threshold_front_cuda.launches += 1
+    threshold_front_cuda.launches_u8 += images.dtype == torch.uint8
     return out
 
 
 threshold_front_cuda.launches = 0
+#: how many of them took the kernel's uint8 path
+threshold_front_cuda.launches_u8 = 0

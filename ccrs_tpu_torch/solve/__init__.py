@@ -16,7 +16,7 @@ from .lm import (
     lm_solve,
     reduce_params,
 )
-from .pnp import homography_dlt, solve_pnp_planar
+from .pnp import homography_dlt, solve_pnp_planar, solve_pnp_planar_batch
 
 __all__ = [
     "se3",
@@ -33,4 +33,5 @@ __all__ = [
     "reduce_params",
     "homography_dlt",
     "solve_pnp_planar",
+    "solve_pnp_planar_batch",
 ]

@@ -175,3 +175,11 @@ def solve_pnp_planar(p3d, p2d_norm, w=None):
     H = homography_dlt(p3d[..., :2], p2d_norm, w)
     R, t = _pose_from_homography(H)
     return _gn_polish(se3.log_so3(R), t, p3d, p2d_norm, w)
+
+
+def solve_pnp_planar_batch(p3d, p2d_norm, w):
+    """``solve_pnp_planar`` over a leading frame axis: (F, N, 3), (F, N, 2)
+    and (F, N) give (rvec (F, 3), tvec (F, 3)).  The JAX package's name for
+    its vmapped solver; ``solve_pnp_planar`` batches over leading axes
+    itself."""
+    return solve_pnp_planar(p3d, p2d_norm, w)

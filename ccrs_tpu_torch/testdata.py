@@ -113,7 +113,8 @@ def _render(
     of ``params``; every tensor on one device."""
     dt, dev = params.dtype, params.device
     unproj = unproject_fn(proj_name)
-    off = ((np.arange(ss) + 0.5) / ss - 0.5).astype(np.float32)
+    # supersampling offsets rounded to the render dtype, as the pixel grid
+    off = torch.as_tensor((np.arange(ss) + 0.5) / ss - 0.5).to(dt).tolist()
     vv, uu = torch.meshgrid(
         torch.arange(height, dtype=dt, device=dev),
         torch.arange(width, dtype=dt, device=dev),
@@ -146,8 +147,48 @@ def _render(
     acc = torch.zeros((poses.shape[0], width * height), dtype=dt, device=dev)
     for du in off:
         for dv in off:
-            acc = acc + sample(float(du), float(dv))
+            acc = acc + sample(du, dv)
     return (acc / (ss * ss)).reshape(-1, height, width)
+
+
+def render_board_image(
+    model: GenericModel,
+    board: Board,
+    family: TagFamily,
+    rvec,
+    tvec,
+    ss: int = 3,
+    noise: float = 0.0,
+    seed: int = 0,
+    blur_sigma: float = 0.7,
+    corner_squares: bool = True,
+):
+    """Render one frame on the host; returns (H, W) uint8 (numpy).
+
+    The frame is rendered in float64 on the CPU whatever devices the
+    machine has, blurred by a Gaussian PSF of ``blur_sigma`` pixels
+    (``scipy.ndimage.gaussian_filter``), given ``noise`` gray levels of
+    Gaussian sensor noise from ``np.random.default_rng(seed)`` and
+    truncated to uint8: the same pixels as the JAX package's function of
+    this name for the same arguments.  ``corner_squares`` draws the
+    Kalibr-style black squares in the tag gaps."""
+    tex, (ox, oy), scale = board_pattern_image(board, family, corner_squares)
+    pose = np.concatenate([np.asarray(rvec, np.float64), np.asarray(tvec, np.float64)])
+    img = _render(
+        model.name,
+        torch.as_tensor(np.asarray(model.params), dtype=F64),
+        torch.as_tensor(pose[None], dtype=F64),
+        torch.as_tensor(tex, dtype=F64),
+        ox, oy, scale, int(model.width), int(model.height), ss,
+    )[0].numpy()
+    if blur_sigma > 0:
+        from scipy.ndimage import gaussian_filter
+
+        img = gaussian_filter(img, blur_sigma)
+    if noise > 0:
+        rng = np.random.default_rng(seed)
+        img = img + rng.normal(size=img.shape) * noise
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def _symmetric_index(n: int, r: int, device):

@@ -33,7 +33,22 @@ entry points a user calls, at the benchmark's sizes:
   launches per shard;
 - phase undistort: EuRoC cam0's undistortion map from 752x480 to 1024x1024
   and the remap of one cli frame, on the card and on the CPU (maps within
-  1e-3 px, pixels within 1 gray level), with their times.
+  1e-3 px, pixels within 1 gray level), with their times;
+- phase colour: the first 48 frames of the cli phase's cam0, tinted and
+  written as 8-bit RGB PNGs, through ``load_euroc`` on the card, against
+  the same frames turned to gray on the host by the loader's integer luma
+  and written as gray PNGs: detections equal bit for bit, every threshold
+  launch on the kernel's uint8 path;
+- phase ccl: device quad extraction (``detect.ccl``, plain torch, not wired
+  into the detector) on the kernel's bitmaps of 64 frames of the 512 phase
+  and 16 of the 1024 phase: labels, quads and ``valid`` on the card equal
+  to a CPU run's on 8 frames of each, the native quadproc's quads matched
+  within 1.5 px (the unmatched share printed and gated), and the warm time
+  of the chunk beside the host route's (bitmap download + quadproc) with
+  the peak device memory;
+- phase tools: ``python -m ccrs_tpu_torch.make_board`` as a subprocess (its
+  PNG read back at the size it printed) and one host-rendered
+  ``render_board_image`` frame detected on the card (>= 30 tags).
 
 Phases 512 and 1024 run ``TagDetector("t36h11", device="cuda")``
 (tracking on) with a ``SpeculativeCalib`` on its provisional hook ->
@@ -100,6 +115,17 @@ EUROC_CAM0 = [471.019, 470.243, 367.122, 246.741, 0.67485, 1.0]
 SPAN_CLI = 1.5
 #: frames of the 512 sequence the mesh phase detects sharded
 N_MESH_DETECT = 128
+#: cli cam0 frames the colour phase writes as RGB and as gray PNGs
+N_COLOUR = 48
+#: frames per shape the ccl phase extracts on the card, and of those on the CPU
+N_CCL = {512: 64, 1024: 16}
+N_CCL_CPU = 8
+#: candidate capacity per frame in the ccl phase, device and native route
+CCL_MAX_QUADS = 128
+#: native quads without a device quad within 1.5 px: most a run may show.
+#: The CPU tests measure 0 to 31% per rendered frame (irregular blobs whose
+#: hull touchpoints lie off the native line fits; the decoder rejects them)
+CCL_MAX_UNMATCHED = 0.35
 
 
 def card_label() -> str:
@@ -943,6 +969,200 @@ def run_undistort_phase(card, frame):
         raise RuntimeError(f"{tag} card and CPU undistortion differ")
 
 
+def run_colour_phase(card, gray_frames):
+    """Tinted 8-bit RGB PNGs against the same frames as gray PNGs (the
+    loader's integer luma applied on the host), both through ``load_euroc``
+    on the card with the default (tracked) detector: equal detections, and
+    every threshold launch on the uint8 path."""
+    from ccrs_tpu_torch import dataloader as dl
+    from ccrs_tpu_torch.board import create_default_6x6_board
+    from ccrs_tpu_torch.detect import TagDetector
+    from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
+    from ccrs_tpu_torch.pngio import write_png
+
+    n, h, w = gray_frames.shape
+    tag = f"[colour {n}x{h}x{w}] ({card})"
+    wobble = (np.add.outer(np.arange(h), np.arange(w)) % 3)[..., None] * np.array([1, 0, 2])
+    board = create_default_6x6_board()
+    batches, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="ccrs_chip_smoke_colour_") as tmp:
+        for kind in ("rgb", "gray"):
+            d = os.path.join(tmp, kind, "mav0", "cam0", "data")
+            os.makedirs(d)
+            for f in range(n):
+                rgb = np.clip(gray_frames[f][..., None] * np.array([0.93, 1.0, 0.62]) + wobble,
+                              0, 255).astype(np.uint8)
+                img = rgb if kind == "rgb" else dl._gray_like_cv2(rgb)
+                write_png(os.path.join(d, f"{10_000_000_000 + f * 100_000_000}.png"), img)
+        if dl._imread(os.path.join(d, "10000000000.png")).shape != (h, w):
+            raise RuntimeError(f"{tag} the gray dataset did not decode to one plane")
+        for kind in ("rgb", "gray"):
+            threshold_front_cuda.launches = threshold_front_cuda.launches_u8 = 0
+            det = TagDetector("t36h11", device="cuda")
+            t0 = time.perf_counter()
+            batches[kind] = dl.load_euroc(os.path.join(tmp, kind), det, board)[0]
+            launches[kind] = (threshold_front_cuda.launches, threshold_front_cuda.launches_u8)
+            print(f"{tag} {kind} PNGs: load_euroc {time.perf_counter() - t0:.3f} s, "
+                  f"{int(batches[kind].mask.sum())} corners on "
+                  f"{int(batches[kind].frame_ok().sum())} usable frames, threshold launches "
+                  f"{launches[kind][0]} ({launches[kind][1]} on the uint8 path)")
+    a, b = batches["rgb"], batches["gray"]
+    same = (np.array_equal(a.time_ns, b.time_ns) and np.array_equal(a.mask, b.mask)
+            and np.array_equal(a.p2d[a.mask], b.p2d[b.mask]))
+    if not same or a.n_frames != n or not a.mask.any():
+        raise RuntimeError(f"{tag} colour PNGs and their host gray detect differently")
+    for kind, (total, u8) in launches.items():
+        if total <= 0 or u8 != total:
+            raise RuntimeError(f"{tag} {kind}: {u8} of {total} threshold launches were uint8")
+    print(f"{tag} detections from the RGB PNGs == from their integer-luma gray, bit for bit")
+    return launches["rgb"][0] + launches["gray"][0]
+
+
+def unmatched_quads(native, device, tol):
+    """How many native quads have no device quad whose corners (as sets,
+    rounded to pixels, each used once) lie within ``tol``."""
+    used, missing = set(), 0
+    for a in native:
+        ca = np.sort(a.round(0), axis=0)
+        for j, b in enumerate(device):
+            if j not in used and np.abs(ca - np.sort(b.round(0), axis=0)).max() <= tol:
+                used.add(j)
+                break
+        else:
+            missing += 1
+    return missing
+
+
+def run_ccl_phase(card, frames, scale, label):
+    """Device quad extraction on the threshold kernel's bitmaps of
+    ``frames`` (a chunk on the card): card against CPU, against the native
+    quadproc, and its warm time beside the host route's."""
+    import torch
+
+    from ccrs_tpu_torch.detect.ccl import extract_quads_device, label_components
+    from ccrs_tpu_torch.detect.quads import extract_quads_batch
+    from ccrs_tpu_torch.detect.threshold import threshold_front
+    from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
+
+    B, H, W = frames.shape
+    sH, sW = H // scale, W // scale
+    tag = f"[ccl {label}, bitmaps {B}x{sH}x{sW}] ({card})"
+    launched = threshold_front_cuda.launches
+    packed = threshold_front(frames, scale)
+    if threshold_front_cuda.launches != launched + 1:
+        raise RuntimeError(f"{tag} the bitmaps did not come from the threshold kernel")
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    binary = ((packed[..., None] >> shifts) & 1).reshape(B, packed.shape[1], -1)
+    binary = binary[:, :sH, :sW].contiguous()
+
+    # the card against the CPU, bit for bit
+    n_cpu = min(N_CCL_CPU, B)
+    torch.cuda.reset_peak_memory_stats()
+    labels = label_components(binary)
+    quads, valid = extract_quads_device(binary, max_quads=CCL_MAX_QUADS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not (labels.is_cuda and quads.is_cuda and valid.is_cuda):
+        raise RuntimeError(f"{tag} the device route did not run on the card")
+    host = binary[:n_cpu].cpu()
+    t0 = time.perf_counter()
+    labels_cpu = label_components(host, device="cpu")
+    quads_cpu, valid_cpu = extract_quads_device(host, max_quads=CCL_MAX_QUADS, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    d_quads = float((quads[:n_cpu].cpu() - quads_cpu).abs().max())
+    ok = (torch.equal(labels[:n_cpu].cpu(), labels_cpu)
+          and torch.equal(valid[:n_cpu].cpu(), valid_cpu) and d_quads == 0.0)
+    print(f"{tag} card vs CPU on {n_cpu} frames: labels equal "
+          f"{torch.equal(labels[:n_cpu].cpu(), labels_cpu)}, valid equal "
+          f"{torch.equal(valid[:n_cpu].cpu(), valid_cpu)}, quads max diff {d_quads:.3e} px "
+          f"(CPU {t_cpu:.1f} s)")
+    if not ok:
+        raise RuntimeError(f"{tag} device quad extraction differs between card and CPU")
+    n_white = int((labels == sH * sW).sum())
+    if n_white != int((binary != 0).sum()):
+        raise RuntimeError(f"{tag} white pixels lost their label")
+
+    # against the native quadproc on the same bitmaps
+    qn, cn = extract_quads_batch(binary.cpu().numpy(), max_quads=CCL_MAX_QUADS)
+    q, v = quads.cpu().numpy(), valid.cpu().numpy()
+    n_native, n_device, missing = int(cn.sum()), int(v.sum()), 0
+    for b in range(B):
+        missing += unmatched_quads(qn[b, : cn[b]], q[b][v[b]], 1.5)
+    share = missing / max(n_native, 1)
+    print(f"{tag} native quadproc {n_native} quads, device {n_device}; {missing} native quads "
+          f"({share:.1%}) have no device quad within 1.5 px (gate {CCL_MAX_UNMATCHED:.0%})")
+    if n_native == 0 or n_device < n_native - missing or share > CCL_MAX_UNMATCHED:
+        raise RuntimeError(f"{tag} device quads do not cover the native quads")
+
+    # warm time of the chunk: device route against the host route
+    ms_labels = time_ms(torch, lambda: label_components(binary), reps=3)
+    ms_quads = time_ms(
+        torch, lambda: extract_quads_device(binary, max_quads=CCL_MAX_QUADS), reps=3)
+    host_s = []
+    for _ in range(3):
+        _, sec = sync_time(torch, lambda: extract_quads_batch(
+            np.unpackbits(packed.cpu().numpy(), axis=-1)[:, :sH, :sW],
+            max_quads=CCL_MAX_QUADS))
+        host_s.append(sec)
+    host_ms = min(host_s) * 1e3
+    print(f"{tag} warm per chunk of {B}: label_components {ms_labels:.3f} ms, "
+          f"extract_quads_device {ms_quads:.3f} ms (CUDA events, 3 calls); host route "
+          f"(bitmap download + unpack + quadproc) {host_ms:.3f} ms (best of 3); peak device "
+          f"memory {peak / 2**20:.0f} MiB")
+    return dict(shape=f"{label}, bitmaps {B}x{sH}x{sW}", labels_ms=ms_labels,
+                quads_ms=ms_quads, host_ms=host_ms, peak_mib=peak / 2**20,
+                native=n_native, device=n_device, unmatched=missing)
+
+
+def run_tools_phase(card):
+    """The board generator as a subprocess and one host-rendered frame
+    detected on the card."""
+    import torch
+
+    from ccrs_tpu_torch.board import create_default_6x6_board
+    from ccrs_tpu_torch.detect import TagDetector, get_family
+    from ccrs_tpu_torch.models import GenericModel
+    from ccrs_tpu_torch.pngio import read_png
+    from ccrs_tpu_torch.solve import se3
+    from ccrs_tpu_torch.testdata import front_view_base, render_board_image
+
+    tag = f"[tools] ({card})"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory(prefix="ccrs_chip_smoke_board_") as tmp:
+        png = os.path.join(tmp, "board.png")
+        out = subprocess.run(
+            [sys.executable, "-m", "ccrs_tpu_torch.make_board", png, "--dpi", "72"],
+            capture_output=True, text=True, env=env, cwd=tmp, timeout=300,
+        )
+        if out.returncode != 0:
+            raise RuntimeError(f"{tag} make_board exited {out.returncode}: {out.stderr[-2000:]}")
+        for line in out.stdout.splitlines():
+            print(f"{tag} make_board: {line}")
+        img = read_png(png)
+    m = re.search(r": (\d+)x(\d+) px", out.stdout)
+    if not m or img.shape != (int(m.group(2)), int(m.group(1))) or img.dtype != np.uint8 \
+            or set(np.unique(img)) != {0, 255}:
+        raise RuntimeError(f"{tag} the board PNG does not hold what make_board printed")
+
+    board = create_default_6x6_board()
+    model = GenericModel("eucm", GT_512, 512, 512)
+    zero = torch.zeros(3, dtype=torch.float64)
+    rv, _ = se3.compose(torch.tensor([0.15, -0.1, 0.05], dtype=torch.float64), zero,
+                        torch.as_tensor(front_view_base()), zero)
+    rvec = rv.numpy()
+    tvec = np.array([0.0, 0.0, 0.6]) - se3.exp_so3(rv).numpy() @ board.p3d.mean(0)
+    t0 = time.perf_counter()
+    frame = render_board_image(model, board, get_family("t36h11"), rvec, tvec, noise=1.0, seed=0)
+    t_render = time.perf_counter() - t0
+    tags = TagDetector("t36h11", device="cuda").detect(frame)
+    print(f"{tag} render_board_image {frame.shape} {frame.dtype} on the host in "
+          f"{t_render:.3f} s; the card's detector finds {len(tags)} tags")
+    if frame.shape != (512, 512) or frame.dtype != np.uint8 or len(tags) < 30:
+        raise RuntimeError(f"{tag} the host-rendered frame gave {len(tags)} tags (< 30)")
+
+
 def main() -> int:
     import torch
 
@@ -984,8 +1204,10 @@ def main() -> int:
 
     frames512, scale, launches512, run512 = run_phase(512, N_512, card)
     k512 = check_kernel(frames512, scale, card, f"{N_512}x512x512")
+    ccl = [run_ccl_phase(card, frames512[: N_CCL[512]].contiguous(), scale, "512 phase")]
     frames, scale, launches1024, _ = run_phase(1024, N_1024, card)
     k1024 = check_kernel(frames, scale, card, f"{N_1024}x1024x1024")
+    ccl.append(run_ccl_phase(card, frames[: N_CCL[1024]].contiguous(), scale, "1024 phase"))
     del frames
     cli_frames, launches_cli, joint = run_cli_phase(card)
     if launches_cli <= 0:
@@ -995,22 +1217,26 @@ def main() -> int:
     launches_mesh = run_mesh_phase(card, frames512, run512, create_default_6x6_board(), joint)
     del frames512
     run_undistort_phase(card, cli_frames[0][0])
+    launches_colour = run_colour_phase(card, cli_frames[0][:N_COLOUR])
+    run_tools_phase(card)
     # every decoded frame of both cameras, as one sequence of 2 x 640 frames
     kcli = check_kernel(torch.as_tensor(np.concatenate(cli_frames)).cuda(), 1, card,
                         f"2 cameras x {N_CLI}x480x752")
     torch.cuda.synchronize()
     shapes = [k512, k1024, kcli]
 
+    print(json.dumps({"ccl": ccl, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "threshold_front",
         "route": "cuda",
         "source": "ccrs_tpu_torch/csrc/threshold.cu",
         "replaces": "ccrs_tpu/ops/threshold_pallas.py:35",
-        "launches": launches512 + launches1024 + launches_cli + launches_mesh,
+        "launches": launches512 + launches1024 + launches_cli + launches_mesh + launches_colour,
         "launches_512": launches512,
         "launches_1024": launches1024,
         "launches_cli": launches_cli,
         "launches_mesh": launches_mesh,
+        "launches_colour": launches_colour,
         "max_abs_err": max(k["max_abs_err"] for k in shapes),
         "ms": k512["ms"],
         "plain_ms": k512["plain_ms"],

@@ -15,7 +15,7 @@ import torch
 
 from ccrs_tpu_torch import cli, testdata
 from ccrs_tpu_torch.calib import convert, initialize, multi, pipeline, single
-from ccrs_tpu_torch.detect import TagDetector
+from ccrs_tpu_torch.detect import TagDetector, ccl
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,6 +31,8 @@ ENTRY_POINTS = [
     testdata.render_frames_device,
     testdata.write_euroc_dataset,
     cli.save_and_validate_results,
+    ccl.label_components,
+    ccl.extract_quads_device,
 ]
 
 
@@ -50,6 +52,18 @@ def test_detector_defaults_to_the_card():
 def test_entry_point_defaults_to_the_card(fn):
     default = inspect.signature(fn).parameters["device"].default
     assert torch.device(default) == torch.device("cuda")
+
+
+def test_render_board_image_is_a_host_function():
+    """One float64 frame rendered on the host, as in the JAX package: it
+    takes no device and has the reference's signature and defaults."""
+    params = inspect.signature(testdata.render_board_image).parameters
+    assert list(params) == [
+        "model", "board", "family", "rvec", "tvec", "ss", "noise", "seed",
+        "blur_sigma", "corner_squares",
+    ]
+    defaults = {k: v.default for k, v in params.items() if v.default is not inspect.Parameter.empty}
+    assert defaults == dict(ss=3, noise=0.0, seed=0, blur_sigma=0.7, corner_squares=True)
 
 
 def test_cli_platform_cpu_is_the_only_cpu_choice():

@@ -1,7 +1,7 @@
 """The PyTorch port imports with jax unavailable and never imports the JAX
 package: every module of ``ccrs_tpu_torch`` is imported, and ``python -m
-ccrs_tpu_torch --help`` and ``python -m ccrs_tpu_torch.testdata --help``
-run, in a subprocess in which ``import jax`` fails."""
+ccrs_tpu_torch --help``, ``python -m ccrs_tpu_torch.testdata --help`` and
+``python -m ccrs_tpu_torch.make_board --help`` run, in a subprocess in which ``import jax`` fails."""
 
 import os
 import subprocess
@@ -22,10 +22,11 @@ names = ["ccrs_tpu_torch"] + [
 ]
 for name in names:
     importlib.import_module(name)
-for name in ("parallel.mesh", "models.undistort", "examples.convert_model", "examples.test_pnp"):
+for name in ("parallel.mesh", "models.undistort", "examples.convert_model", "examples.test_pnp",
+             "make_board", "detect.ccl"):
     assert "ccrs_tpu_torch." + name in names, name
 import contextlib, io, runpy
-for entry in ("ccrs_tpu_torch", "ccrs_tpu_torch.testdata"):
+for entry in ("ccrs_tpu_torch", "ccrs_tpu_torch.testdata", "ccrs_tpu_torch.make_board"):
     sys.argv = [entry, "--help"]
     out = io.StringIO()
     try:

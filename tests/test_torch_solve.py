@@ -73,6 +73,30 @@ def test_solve_pnp_planar_matches():
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=1e-9)
 
 
+def test_solve_pnp_planar_batch_matches():
+    """The batch case of tests/test_pnp.py (six random noise-free poses):
+    rvec and tvec within 1e-7 of the truth and within 1e-9 of the JAX
+    package's ``solve_pnp_planar_batch``."""
+    from ccrs_tpu_torch.solve import solve_pnp_planar_batch
+
+    rng = np.random.default_rng(5)
+    p3d = np.zeros((6, 40, 3))
+    p3d[..., :2] = rng.uniform(0, 0.5, (6, 40, 2))
+    rvec = rng.normal(size=(6, 3)) * 0.3
+    tvec = np.array([0.1, -0.2, 0.8]) + rng.normal(size=(6, 3)) * 0.05
+    R = np.asarray(jax.vmap(JS.exp_so3)(jnp.asarray(rvec)))
+    pc = np.einsum("fnj,fij->fni", p3d, R) + tvec[:, None]
+    obs = pc[..., :2] / pc[..., 2:3]
+    w = np.ones(p3d.shape[:2])
+    jr, jt = JPNP.solve_pnp_planar_batch(jnp.asarray(p3d), jnp.asarray(obs), jnp.asarray(w))
+    r, t = solve_pnp_planar_batch(_t(p3d), _t(obs), _t(w))
+    assert r.shape == t.shape == (6, 3) and r.dtype == F64
+    np.testing.assert_allclose(r.numpy(), rvec, rtol=0, atol=1e-7)
+    np.testing.assert_allclose(t.numpy(), tvec, rtol=0, atol=1e-7)
+    np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=0, atol=1e-9)
+
+
 def _jax_draws(key, mask, n_samples):
     """The (n_samples, 6) subsets JAX's RANSAC draws from ``key``."""
     keys = jax.random.split(key, n_samples)

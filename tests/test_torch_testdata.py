@@ -6,7 +6,12 @@ on all but 1e-4 of the pixels: the two frameworks round the float32 pose
 rotation differently by a few ulps, which moves texel edges by ~1e-7 of a
 cell and flips the rare supersample that lands exactly on an edge; one of
 the 9 supersamples flipping between black (35) and white (220) moves a
-pixel by at most 185/9 < 21 gray levels."""
+pixel by at most 185/9 < 21 gray levels.
+
+``render_board_image`` renders one frame on the host in float64 in both
+packages, with scipy's Gaussian filter and numpy's seeded noise: its pixels
+are equal (tolerance 0), with and without noise, for two seeds and for
+square and non-square sensors."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,3 +91,44 @@ def test_seeded_noise_is_reproducible():
 
     assert torch.equal(render(3), render(3))
     assert not torch.equal(render(3), render(4))
+
+
+BOARD_IMAGE_MODELS = {
+    "eucm512": ("eucm", GT, 512, 512),
+    "opencv5_643x481": (
+        "opencv5", [400.0, 398.0, 321.0, 240.0, -0.28, 0.09, 0.001, -0.0005, -0.01], 643, 481,
+    ),
+}
+
+
+@pytest.mark.parametrize("noise,seed", [(0.0, 0), (1.5, 1), (1.5, 7)])
+@pytest.mark.parametrize("spec", list(BOARD_IMAGE_MODELS))
+def test_render_board_image_matches(spec, noise, seed):
+    """Float64 on both sides: every pixel equal."""
+    name, params, w, h = BOARD_IMAGE_MODELS[spec]
+    pose = JT.default_sequence_poses(2, jax_board(), seed=3)[1]
+    want = JT.render_board_image(
+        JaxModel(name, params, w, h), jax_board(), jax_family("t36h11"),
+        pose[:3], pose[3:], noise=noise, seed=seed,
+    )
+    got = TT.render_board_image(
+        GenericModel(name, params, w, h), create_default_6x6_board(), get_family("t36h11"),
+        pose[:3], pose[3:], noise=noise, seed=seed,
+    )
+    assert isinstance(got, np.ndarray) and got.dtype == np.uint8 and got.shape == (h, w)
+    assert got.min() < 60 and got.max() > 200  # the board is in view
+    np.testing.assert_array_equal(got, want)
+
+
+def test_render_board_image_options_match():
+    """``ss``, ``blur_sigma`` and ``corner_squares`` follow the reference."""
+    pose = JT.default_sequence_poses(1, jax_board(), seed=5)[0]
+    kw = dict(ss=2, blur_sigma=0.0, corner_squares=False, noise=0.5, seed=4)
+    want = JT.render_board_image(
+        JaxModel("eucm", GT, 256, 256), jax_board(), jax_family("t36h11"), pose[:3], pose[3:], **kw
+    )
+    got = TT.render_board_image(
+        GenericModel("eucm", GT, 256, 256), create_default_6x6_board(), get_family("t36h11"),
+        pose[:3], pose[3:], **kw
+    )
+    np.testing.assert_array_equal(got, want)

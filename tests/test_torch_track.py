@@ -26,10 +26,11 @@ from ccrs_tpu.detect import get_family as jax_family
 from ccrs_tpu.detect import track as JT
 from ccrs_tpu.models import GenericModel as JaxModel
 from ccrs_tpu.testdata import render_board_image, smooth_sequence_poses
+from ccrs_tpu_torch import testdata as port_testdata
 from ccrs_tpu_torch.detect import detector as port_detector_mod
 from ccrs_tpu_torch.detect import get_family
 from ccrs_tpu_torch.detect import track as TT
-from ccrs_tpu_torch.interop import wave_carry_from_ref
+from ccrs_tpu_torch.interop import board_from_ref, model_from_ref, wave_carry_from_ref
 from torch_jax_pin import fresh_jax_traces  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
@@ -160,12 +161,18 @@ def wave_case():
     )
     active = np.array([True, True, False])
     wave_imgs = np.stack([imgs[2]] * 3)
+    # the port's wave runs on the frame its own renderer makes (equal pixel
+    # for pixel, tests/test_torch_testdata.py)
+    port_img = port_testdata.render_board_image(
+        model_from_ref(model), board_from_ref(board), get_family("t36h11"),
+        poses[2, :3], poses[2, 3:], noise=1.0, seed=2,
+    )
     jc, jo = JT.wave_advance(
         fam, jnp.asarray(wave_imgs), jnp.asarray(_board_xy(board)),
         jnp.asarray(np.int32(board.config.first_id)),
         tuple(jnp.asarray(a) for a in carry), jnp.asarray(active),
     )
-    return dict(board=board, carry=carry, active=active, imgs=wave_imgs,
+    return dict(board=board, carry=carry, active=active, imgs=np.stack([port_img] * 3),
                 jax_carry=[np.asarray(a) for a in jc], jax_out=[np.asarray(a) for a in jo],
                 n_cold=len(cold[1]))
 

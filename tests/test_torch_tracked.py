@@ -26,8 +26,10 @@ from ccrs_tpu.detect import TagDetector as JaxDetector
 from ccrs_tpu.detect import get_family as jax_family
 from ccrs_tpu.models import GenericModel as JaxModel
 from ccrs_tpu.testdata import render_board_image, render_frames_device, smooth_sequence_poses
+from ccrs_tpu_torch import testdata as port_testdata
 from ccrs_tpu_torch.detect import TagDetector
-from ccrs_tpu_torch.interop import board_from_ref
+from ccrs_tpu_torch.detect import get_family as port_family
+from ccrs_tpu_torch.interop import board_from_ref, model_from_ref
 
 torch.set_num_threads(2)
 
@@ -36,15 +38,24 @@ CORNER_TOL = 1e-3  # px
 
 
 def video_frames():
-    """The 14-frame smooth sequence of tests/test_track.py (512x512 EUCM)."""
+    """The 14-frame smooth sequence of tests/test_track.py (512x512 EUCM),
+    rendered by each package's own ``render_board_image`` for its own
+    detector: (JAX frames, port frames).  The two are equal pixel for pixel
+    (tests/test_torch_testdata.py holds that)."""
     board = jax_board()
     fam = jax_family("t36h11")
     model = JaxModel("eucm", GT, 512, 512)
     poses = smooth_sequence_poses(14, board, seed=3, keyframe_every=6)
-    return np.stack([
+    ref = np.stack([
         render_board_image(model, board, fam, p[:3], p[3:], noise=1.5, seed=f)
         for f, p in enumerate(poses)
     ])
+    pboard, pfam, pmodel = board_from_ref(board), port_family("t36h11"), model_from_ref(model)
+    port = np.stack([
+        port_testdata.render_board_image(pmodel, pboard, pfam, p[:3], p[3:], noise=1.5, seed=f)
+        for f, p in enumerate(poses)
+    ])
+    return ref, port
 
 
 def bench_like_frames():
@@ -94,28 +105,30 @@ def leave_tpu_traces(imgs, monkeypatch):
         det.detect_batch(imgs[:6])
 
 
-def run_both(imgs):
+def run_both(imgs, port_imgs=None):
+    port_imgs = imgs if port_imgs is None else port_imgs
     jb = jax_board()
     jax.clear_caches()  # no trace made under another backend setting
     jdet = JaxDetector("t36h11", track=True)
     want = jdet.detect_batch(imgs, board=jb)
     det = TagDetector("t36h11", device="cpu")
     assert det.track  # the default
-    got = det.detect_batch(imgs, board=board_from_ref(jb))
+    got = det.detect_batch(port_imgs, board=board_from_ref(jb))
     return got, want, det.stats, jdet.stats
 
 
 @pytest.mark.parametrize("name", ["video", "bench_like", "shuffled", "video_after_tpu_traces"])
 def test_tracked_matches_reference(name, monkeypatch):
     if name == "bench_like":
-        imgs = bench_like_frames()
+        imgs = port_imgs = bench_like_frames()
     else:
-        imgs = video_frames()
+        imgs, port_imgs = video_frames()
         if name == "shuffled":
-            imgs = imgs[[5, 0, 9, 2, 12, 7]]
+            order = [5, 0, 9, 2, 12, 7]
+            imgs, port_imgs = imgs[order], port_imgs[order]
         if name == "video_after_tpu_traces":
             leave_tpu_traces(imgs, monkeypatch)
-    got, want, stats, jstats = run_both(imgs)
+    got, want, stats, jstats = run_both(imgs, port_imgs)
     assert_same_detections(got, want)
     assert_same_stats(stats, jstats)
     if name.startswith("video"):

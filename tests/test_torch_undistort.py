@@ -109,6 +109,20 @@ def test_remap_matches_jax_gray_and_colour(spec):
     assert torch.equal(remap(torch.as_tensor(gray), xmap, ymap), remap(gray, xmap, ymap))
 
 
+@pytest.mark.parametrize("shape", [(60, 80), (60, 80, 3)], ids=["gray", "colour"])
+def test_remap_bool_matches_jax(shape):
+    """A bool mask: gray comes back as uint8 0/1, colour as bool (the JAX
+    ``remap`` casts a colour image back to its own dtype).  Bit-exact."""
+    rng = np.random.default_rng(2)
+    img = rng.random(shape) > 0.5
+    jx = rng.uniform(-2, 82, (50, 70)).astype(np.float32)
+    jy = rng.uniform(-2, 62, (50, 70)).astype(np.float32)
+    got = remap(img, torch.as_tensor(jx), torch.as_tensor(jy)).numpy()
+    want = jax_undistort.remap(img, jx, jy)
+    assert got.dtype == want.dtype == (np.uint8 if len(shape) == 2 else np.bool_)
+    np.testing.assert_array_equal(got, want)
+
+
 def _round_f32(x: Fraction) -> np.float32:
     """The float32 nearest the rational x, ties to even."""
     f = np.float32(float(x))
