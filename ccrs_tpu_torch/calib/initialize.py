@@ -89,6 +89,7 @@ def _normalize(p2d, width, height):
 def init_ucm(
     q0, q1, pair_mask, p3d, p2d, masks, half: float, wh,
     generator=None, fixed_focal: Optional[float] = None, idx=None,
+    solver: str = "f64",
 ):
     """One init attempt on tensors of one device:
 
@@ -103,6 +104,8 @@ def init_ucm(
         masks (2, N) per-frame observation masks.
       half: normalization half-size; wh: (2,) tensor (width, height).
       generator / idx: RANSAC draws (see radial_distortion_homography).
+      solver: the two-frame full calibration's solver, ``"f64"`` or
+        ``"mixed"`` (``calib_camera_solve``; the JAX package runs it mixed).
 
     Returns (params (5,) full UCM, ok) with ok a 0-d bool tensor.
     """
@@ -150,7 +153,7 @@ def init_ucm(
     theta2 = torch.stack([params1[0], params1[2], params1[3], params1[4]])
     res2, frame_valid = calib_camera_solve(
         unproject_ucm, project_ucm, theta2, params1, p2d, masks, p3d,
-        lo2, hi2, free2, one_focal=True,
+        lo2, hi2, free2, one_focal=True, solver=solver,
     )
     params = expand_theta(res2.theta, True)
     ok = (
@@ -171,8 +174,10 @@ def try_init_camera(
     generator: torch.Generator,
     fixed_focal: Optional[float] = None,
     device="cuda",
+    solver: str = "f64",
 ) -> Optional[GenericModel]:
-    """One initialization attempt (``src/util.rs:107-159``) on ``device``.
+    """One initialization attempt (``src/util.rs:107-159``) on ``device``;
+    ``solver`` as in ``init_ucm``.
 
     Returns a fitted UCM model or None (the caller retries; the generator
     has advanced, so the retry draws new RANSAC hypotheses).
@@ -190,7 +195,7 @@ def try_init_camera(
         t(board.p3d), t(batch.p2d[sel]),
         torch.as_tensor(batch.mask[sel], device=device),
         float(half), t([batch.width, batch.height]),
-        generator=generator, fixed_focal=fixed_focal,
+        generator=generator, fixed_focal=fixed_focal, solver=solver,
     )
     if not bool(ok):
         return None

@@ -7,11 +7,14 @@ initialized by a pose-graph solve over the frames both cameras saw (Huber
 0.5 SE3 residuals on the dense LM core), then one joint Schur BA runs over
 all cameras' intrinsics, the camera extrinsics and the shared board poses.
 
-The joint solve runs in float64.  When the device mesh
-(``parallel.mesh.make_mesh``) holds more than one device of the requested
-device's type and F is at least its size, it is frame-sharded over the
-mesh (``multi_ba_sharded``), as ``ccrs_tpu`` shards it over
-``jax.devices()``; otherwise it runs on one device (``ba_solve_multi``).
+The joint solve runs in float64 (``solver="f64"``, the default) or as the
+JAX package's float32 descent plus float64 polish (``solver="mixed"``).
+When the device mesh (``parallel.mesh.make_mesh``) holds more than one
+device of the requested device's type and F is at least its size, it is
+frame-sharded over the mesh (``multi_ba_sharded`` /
+``multi_ba_sharded_mixed``), as ``ccrs_tpu`` shards it over
+``jax.devices()``; otherwise it runs on one device (``ba_solve_multi`` /
+``ba_solve_multi_mixed``).
 """
 
 from __future__ import annotations
@@ -25,12 +28,19 @@ import torch
 from ..board import Board
 from ..models import GenericModel
 from ..models.projections import project_fn
-from ..parallel.mesh import mesh_for, multi_ba_sharded
+from ..parallel.mesh import mesh_for, multi_ba_sharded, multi_ba_sharded_mixed
 from ..solve import se3
-from ..solve.lm import LMOptions, ba_solve_multi, expand_theta, lm_solve, reduce_params
+from ..solve.lm import (
+    LMOptions,
+    ba_solve_multi,
+    ba_solve_multi_mixed,
+    expand_theta,
+    lm_solve,
+    reduce_params,
+)
 from ..types import RvecTvec
 from .frames import FrameBatch
-from .single import build_bounds, disabled_free_mask
+from .single import build_bounds, check_solver, disabled_free_mask
 
 log = logging.getLogger(__name__)
 
@@ -89,15 +99,18 @@ def calib_all_camera_with_extrinsics(
     disabled_distortions: int,
     cam0_fixed_focal: bool,
     device="cuda",
+    solver: str = "f64",
 ) -> Optional[Tuple[List[GenericModel], List[RvecTvec], Dict[int, RvecTvec]]]:
     """One joint problem over all cameras (``src/util.rs:567-715``) on
     ``device``, frame-sharded over the mesh when it holds more than one
-    device of that type (see the module docstring).
+    device of that type; ``solver``: ``"f64"`` or ``"mixed"`` (see the
+    module docstring).
 
     Returns (intrinsics, T_i_0 per camera, board poses {frame: T_0_b}) or
     None if the solve diverges (the caller falls back to per-camera
     results, bin/camera_calibration.rs:320-343).
     """
+    mixed = check_solver(solver) == "mixed"
     C = len(cameras)
     F = max(b.n_frames for b in batches)
     N = board.n_corners
@@ -162,9 +175,11 @@ def calib_all_camera_with_extrinsics(
     mesh = mesh_for(device)
     if len(mesh) > 1 and F >= len(mesh):
         # frame-sharded joint solve: one reduced system per LM iteration
-        res = multi_ba_sharded(*args, one_focal=xy_same_focal, huber_delta=1.0, mesh=mesh)
+        sharded = multi_ba_sharded_mixed if mixed else multi_ba_sharded
+        res = sharded(*args, one_focal=xy_same_focal, huber_delta=1.0, mesh=mesh)
     else:
-        res = ba_solve_multi(*args, one_focal=xy_same_focal, huber_delta=1.0)
+        single = ba_solve_multi_mixed if mixed else ba_solve_multi
+        res = single(*args, one_focal=xy_same_focal, huber_delta=1.0)
     if not np.isfinite(float(res.cost)):
         return None
 

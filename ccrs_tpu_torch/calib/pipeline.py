@@ -93,15 +93,17 @@ def init_and_calibrate_one_camera(
     pose_init_f32: bool = False,
     out: Optional[dict] = None,
     device="cuda",
+    solver: str = "f64",
 ) -> Optional[Tuple[GenericModel, Dict[int, RvecTvec]]]:
     """One calibration attempt on ``device``.
 
     ``warm``: optional (model, poses (F, 6), pose_valid (F,), init_frames)
     from a speculative calibration — skips init + convert (and draws
     nothing from ``generator``) and seeds the final BA, which still runs
-    to full convergence on ``batch``.  ``polish_iters`` and
-    ``pose_init_f32``: passed to ``calib_camera`` (the speculative solve
-    asks for a float32 pose init).  ``out``: optional dict filled with
+    to full convergence on ``batch``.  ``polish_iters``,
+    ``pose_init_f32`` and ``solver``: passed to ``calib_camera`` (the
+    speculative solve asks for a float32 pose init and, on the mixed
+    route, a 2-iteration polish).  ``out``: optional dict filled with
     ``init_frames`` (the two keyframes used) and ``gated`` ((median,
     result) when the sanity gate rejected a converged solve) — per call,
     since speculative solves run this on other threads."""
@@ -121,7 +123,7 @@ def init_and_calibrate_one_camera(
                 fixed_focal=calib_params.fixed_focal is not None,
                 warm_poses=warm_poses, warm_valid=warm_valid,
                 skip_pose_init=bool(np.all(np.asarray(warm_valid) > 0)),
-                device=device,
+                device=device, solver=solver,
             )
         return _gate_result(board, batch, result, out)
 
@@ -134,7 +136,7 @@ def init_and_calibrate_one_camera(
         for i in range(MAX_INIT_ATTEMPTS):
             initial_camera = try_init_camera(
                 board, batch, frame0, frame1, generator, calib_params.fixed_focal,
-                device=device,
+                device=device, solver=solver,
             )
             if initial_camera is not None:
                 break
@@ -179,7 +181,7 @@ def init_and_calibrate_one_camera(
             fixed_focal=fixed_focal,
             polish_iters=polish_iters,
             pose_init_f32=pose_init_f32,
-            device=device,
+            device=device, solver=solver,
         )
     return _gate_result(board, batch, result, out)
 
@@ -212,9 +214,11 @@ def calibrate_camera_with_retries(
     seed: int = 0,
     warm_provider=None,
     device="cuda",
+    solver: str = "f64",
 ) -> Tuple[GenericModel, Dict[int, RvecTvec]]:
     """<=3 trials on ``device``; retries pick random init frames
-    (bin/camera_calibration.rs:217-242).
+    (bin/camera_calibration.rs:217-242).  ``solver``: every trial's bundle
+    adjustment, ``"f64"`` or ``"mixed"`` (see ``calib_camera``).
 
     ``warm_provider``: optional zero-argument callable returning a warm
     tuple (see init_and_calibrate_one_camera) or None — typically
@@ -241,6 +245,7 @@ def calibrate_camera_with_retries(
             board, batch, target_model, calib_params, generator,
             random_pick_two_frames=trial is not None and trial > 0, rng=rng,
             warm=warm if trial is None else None, out=attempt, device=device,
+            solver=solver,
         )
         if result is not None:
             calibrate_camera_with_retries.last_spec_used = trial is None
@@ -287,7 +292,8 @@ class SpeculativeCalib:
     camera's ``generator`` into a generator of its own and draws only from
     that copy, so its init makes the draws trial 0 of the ladder would
     make and never moves the ladder's generator.  Construct it before the
-    ladder draws.  The solve runs on the generator's device.
+    ladder draws.  The solve runs on the generator's device, with
+    ``solver`` (``"mixed"``: a seed-quality 2-iteration polish).
 
     Failures are not hidden: an exception in the thread leaves ``take()``
     returning None (the ladder runs cold) and is kept in ``error`` (its
@@ -304,10 +310,12 @@ class SpeculativeCalib:
             device=...)
     """
 
-    def __init__(self, board, times, target_model, calib_params, generator, width, height):
+    def __init__(self, board, times, target_model, calib_params, generator, width, height,
+                 solver: str = "f64"):
         own = torch.Generator(device=generator.device)
         own.set_state(generator.get_state())
         self._args = (board, list(times), target_model, calib_params, own, width, height)
+        self._solver = solver
         self._thread = None
         self._warm = None
         self.error = None
@@ -341,7 +349,7 @@ class SpeculativeCalib:
                 res = init_and_calibrate_one_camera(
                     board, batch, target_model, calib_params, generator,
                     polish_iters=2, pose_init_f32=True, out=attempt,
-                    device=generator.device,
+                    device=generator.device, solver=self._solver,
                 )
             if res is None:
                 return

@@ -6,13 +6,14 @@ one ``(F, N, 2)`` masked residual tensor; per-frame pose init is the
 batched unproject -> planar-PnP path of ``src/util.rs:418-439`` with the
 <10-valid frame skip expressed as a frame mask.
 
-The solve is the float64 ``ba_solve`` throughout, where the JAX package
-runs its mixed-precision ``ba_solve_mixed`` (a float32 descent, then a
-float64 polish of ``polish_iters`` iterations).  ``calib_camera`` accepts
-``polish_iters`` for the same callers and ignores it: a float64 solve has
-no separate polish.  The warm-start arguments (``warm_poses``,
-``warm_valid``, ``skip_pose_init``) and the float32 pose init
-(``pose_init_f32``) of the speculative calibration are ported.
+Two solvers, chosen by ``solver=``: ``"f64"`` (the default) is the float64
+``ba_solve`` from the first iteration; ``"mixed"`` is the JAX package's
+route, ``ba_solve_mixed`` (a float32 descent, then a float64 polish of at
+most ``polish_iters`` iterations).  ``polish_iters`` means something on the
+mixed route only: a float64 solve has no separate polish.  The warm-start
+arguments (``warm_poses``, ``warm_valid``, ``skip_pose_init``) and the
+float32 pose init (``pose_init_f32``) of the speculative calibration are
+ported.
 """
 
 from __future__ import annotations
@@ -25,13 +26,20 @@ import torch
 from ..board import Board
 from ..models import GenericModel
 from ..models.projections import project_fn, unproject_fn
-from ..solve.lm import ba_solve, expand_theta, reduce_params
+from ..solve.lm import ba_solve, ba_solve_mixed, expand_theta, reduce_params
 from ..solve.pnp import solve_pnp_planar
 from ..types import RvecTvec
 from .frames import FrameBatch
 
 MIN_PNP_POINTS = 10  # src/util.rs:431
 F64 = torch.float64
+SOLVERS = ("f64", "mixed")
+
+
+def check_solver(solver: str) -> str:
+    if solver not in SOLVERS:
+        raise ValueError(f"solver must be one of {SOLVERS}, not {solver!r}")
+    return solver
 
 
 def build_bounds(model: GenericModel, one_focal: bool):
@@ -84,15 +92,35 @@ def pose_init(unproj, params, p2d, mask, p3d):
     return poses, frame_valid
 
 
+def init_frame_poses(board: Board, batch: FrameBatch, model: GenericModel, device="cuda"):
+    """Batched pose init for every frame on ``device``: unproject the
+    observations through the current model, planar PnP on the valid ones
+    (``src/util.rs:418-439``).
+
+    Returns (poses (F, 6), frame_valid (F,)) as numpy arrays — frames with
+    fewer than MIN_PNP_POINTS valid unprojections are masked out.
+    """
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=F64, device=device)
+
+    poses, frame_valid = pose_init(
+        unproject_fn(model.name), t(model.params), t(batch.p2d),
+        torch.as_tensor(batch.mask, device=device), t(board.p3d),
+    )
+    return poses.cpu().numpy(), frame_valid.cpu().numpy()
+
+
 def calib_camera_solve(
     unproj, proj, theta0, params_full, p2d, mask, p3d, lo, hi, free,
     one_focal: bool, max_iters: int = 60, huber_delta: float = 1.0,
     warm_poses=None, warm_valid=None, skip_pose_init: bool = False,
-    pose_init_f32: bool = False,
+    pose_init_f32: bool = False, solver: str = "f64", polish_iters: int = 12,
 ):
     """Pose init through ``params_full`` then the Schur LM from ``theta0``;
     every argument a tensor on the solve's device.  Returns
-    (BAResult, frame_valid (F,)).
+    (BAResult, frame_valid (F,)).  ``solver``: ``"f64"`` solves with
+    ``ba_solve``, ``"mixed"`` with ``ba_solve_mixed`` and its
+    ``polish_iters``.
 
     ``warm_poses`` (F, 6) / ``warm_valid`` (F,): frames with
     ``warm_valid > 0`` start from the warm pose instead of the PnP pose.
@@ -116,11 +144,14 @@ def calib_camera_solve(
         frame_valid = frame_valid.to(theta0.dtype) * (mask.sum(dim=1) > 0)
         if warm_poses is not None:
             poses0 = torch.where((warm_valid > 0)[:, None], warm_poses, poses0)
-    res = ba_solve(
-        proj, theta0, poses0, p3d, p2d, mask.to(theta0.dtype), lo, hi, free,
-        frame_valid, one_focal=one_focal, max_iters=max_iters,
-        huber_delta=huber_delta,
-    )
+    args = (proj, theta0, poses0, p3d, p2d, mask.to(theta0.dtype), lo, hi, free,
+            frame_valid)
+    if check_solver(solver) == "mixed":
+        res = ba_solve_mixed(*args, one_focal=one_focal, max_iters=max_iters,
+                             huber_delta=huber_delta, polish_iters=polish_iters)
+    else:
+        res = ba_solve(*args, one_focal=one_focal, max_iters=max_iters,
+                       huber_delta=huber_delta)
     return res, frame_valid
 
 
@@ -137,6 +168,7 @@ def calib_camera(
     skip_pose_init: bool = False,
     pose_init_f32: bool = False,
     device="cuda",
+    solver: str = "f64",
 ) -> Optional[Tuple[GenericModel, Dict[int, RvecTvec]]]:
     """Full single-camera BA (``src/util.rs:384-490``) on ``device``.
 
@@ -144,14 +176,16 @@ def calib_camera(
     (the speculative solve's poses seed the final one); the intrinsics
     warm start rides ``camera``.  ``skip_pose_init`` drops the PnP init
     (requires ``warm_poses`` covering every frame), ``pose_init_f32`` runs
-    it in float32 (see ``calib_camera_solve``).  ``polish_iters`` has no
-    effect (see the module docstring).
+    it in float32 (see ``calib_camera_solve``).  ``solver``: ``"f64"``
+    (``ba_solve``) or ``"mixed"`` (``ba_solve_mixed`` with
+    ``polish_iters``, the JAX package's route); the fixed-focal re-solve
+    is float64 on both.
 
     Returns (calibrated model, {frame_idx: board->camera pose}) or None.
     """
     if skip_pose_init and warm_poses is None:
         raise ValueError("skip_pose_init requires warm_poses")
-    del polish_iters  # the float64 solve has no separate polish
+    check_solver(solver)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=F64, device=device)
@@ -176,6 +210,7 @@ def calib_camera(
         warm_poses=None if warm_poses is None else t(warm_poses),
         warm_valid=None if warm_valid is None else t(warm_valid),
         skip_pose_init=skip_pose_init, pose_init_f32=pose_init_f32,
+        solver=solver, polish_iters=polish_iters,
     )
     if float(frame_valid.sum()) == 0 or not bool(torch.isfinite(res.cost)):
         return None

@@ -11,7 +11,11 @@ speculative calibration, which solves on the tracker's provisional
 detections while its audits run and warm-starts each camera's retry
 ladder (``--no-speculate`` or ``CCRS_SPECULATE=0`` turn it off; results
 are the same either way).  Even a one-camera run ends in the joint
-multi-camera solve, as in the reference.
+multi-camera solve, as in the reference.  With ``CCRS_PREWARM=1`` a
+background thread, started at the first decoded image, pays the process's
+one-time costs on dummy data (``Prewarm``; it changes timing only, and is
+off by default because on an H100 it measured slower than paying them in
+the first solve).
 
 Run as ``python -m ccrs_tpu_torch <dataset> --model eucm ...``.
 Detection, calibration and the joint solve run on the current CUDA device
@@ -36,6 +40,7 @@ import argparse
 import contextlib
 import logging
 import os
+import threading
 import time
 from datetime import datetime
 from typing import Dict, List
@@ -48,12 +53,13 @@ from .calib import validation
 from .calib.frames import FrameBatch
 from .calib.multi import calib_all_camera_with_extrinsics, init_camera_extrinsic
 from .calib.pipeline import SpeculativeCalib, calibrate_camera_with_retries
-from .dataloader import load_euroc, load_general
+from .calib.prewarm import prewarm_calibration
+from .dataloader import DETECT_BATCH, load_euroc, load_general
 from .detect import FAMILY_NAMES, TagDetector
 from .io import object_from_json, object_to_json, write_report
 from .models import MODEL_NAMES, model_to_json, zeros_like_model
 from .types import CalibParams, Extrinsics, RvecTvec
-from .utils.profiling import stage, with_profiler
+from .utils.profiling import stage, stage_prefix, with_profiler
 from .visualization import Recorder
 
 log = logging.getLogger(__name__)
@@ -167,14 +173,75 @@ def camera_generators(seed: int, cam_num: int, device) -> List[torch.Generator]:
     ]
 
 
+class Prewarm:
+    """The loaders' ``prewarm_cb``: on the thread the loader starts at the
+    first decoded image, run ``detector.prewarm`` and
+    ``prewarm_calibration`` on dummy data of the run's frame size, model
+    and parameters, so that library loads, first launches and the first
+    ``torch.func`` solve overlap image decoding and detection instead of
+    stalling the first chunk and the first (speculative) solve.
+
+    ``CCRS_PREWARM=1`` opts in; unset or ``0`` the callback does nothing.
+    The JAX package warms by default because its set-up is compilation,
+    which runs beside the host's decoding.  Here the one-time cost is host
+    work under the interpreter lock, as detection is, so the thread has
+    nothing idle to use: fresh CLI runs on an H100 were slower with it on
+    (``tools/fresh_cli_probe.py``).  A failure does not end the run: it is
+    logged and kept in ``error`` (its repr; ``SpeculativeCalib.error``'s
+    convention), which ``main`` prints.  ``join`` waits for the thread, so no device work is
+    left running when the process exits.
+    """
+
+    def __init__(self, args, detector, board, device, speculative: bool):
+        self._args = (args, detector, board, device, speculative)
+        self._thread = None
+        self.error = None
+        self.seconds = None
+
+    def __call__(self, width: int, height: int, n_frames: int) -> None:
+        if os.environ.get("CCRS_PREWARM", "0") == "0":
+            return
+        self._thread = threading.current_thread()
+        args, detector, board, device, speculative = self._args
+        t0 = time.perf_counter()
+        try:
+            # the loader streams DETECT_BATCH-frame chunks and the tracked
+            # session detects the padded sequence at once: the frame count
+            # the JAX warm-up sizes its graphs by
+            if n_frames > DETECT_BATCH:
+                n_detect = -(-n_frames // DETECT_BATCH) * DETECT_BATCH
+            else:
+                n_detect = n_frames
+            with stage_prefix("prewarm/"):
+                with stage("detect"):
+                    detector.prewarm(height, width, board, n_frames=n_detect)
+                with stage("calib"):
+                    prewarm_calibration(
+                        board, min(n_frames, args.max_images), args.model,
+                        _cam_calib_params(args, 0), width, height,
+                        speculative=speculative, n_frames_spec=n_frames,
+                        device=device,
+                    )
+        except Exception as e:  # the run goes on; the error stays visible
+            log.exception("prewarm failed (continuing; the first solve pays the costs)")
+            self.error = repr(e)
+        self.seconds = time.perf_counter() - t0
+
+    def join(self) -> None:
+        """Wait for the warm-up thread, if the loader started one."""
+        if self._thread is not None and self._thread is not threading.current_thread():
+            self._thread.join()
+
+
 def load_feature_data(args, detector, board, recorder, specs=None,
-                      generators=None) -> List[FrameBatch]:
+                      generators=None, prewarm_cb=None) -> List[FrameBatch]:
     """Detect features for every camera.
 
     ``specs`` / ``generators``: optional dict + per-camera generators that
     enable SPECULATIVE calibration — a SpeculativeCalib per camera is
     registered on the detector, so its solve overlaps the detection
     audits, and stored in ``specs[cam_idx]`` for ``calibrate_all_cameras``.
+    ``prewarm_cb``: handed to the loader (``Prewarm``).
     """
     print("Start loading images and detecting charts.")
     t0 = time.perf_counter()
@@ -192,7 +259,8 @@ def load_feature_data(args, detector, board, recorder, specs=None,
 
     batches = loader(
         args.path, detector, board, args.start_idx, args.step, args.cam_num,
-        recorder, cache_dir=args.detection_cache, spec_factory=spec_factory,
+        recorder, cache_dir=args.detection_cache, prewarm_cb=prewarm_cb,
+        spec_factory=spec_factory,
     )
     dt = time.perf_counter() - t0
     print(f"detecting feature took {dt:.6f} sec")
@@ -364,7 +432,11 @@ def main(argv=None):
             not args.no_speculate and os.environ.get("CCRS_SPECULATE", "1") != "0"
         )
         specs = {} if speculate else None
-        batches = load_feature_data(args, detector, board, recorder, specs, generators)
+        prewarm = Prewarm(args, detector, board, device, specs is not None)
+        main.last_prewarm = prewarm
+        batches = load_feature_data(
+            args, detector, board, recorder, specs, generators, prewarm_cb=prewarm
+        )
         intrinsics, cam_rtvecs = calibrate_all_cameras(
             args, board, batches, recorder, generators, device, specs
         )
@@ -376,7 +448,25 @@ def main(argv=None):
             args, output_folder, board, batches, intrinsics, cam_rtvecs,
             t_cam_i_0, recorder, device=device,
         )
+        prewarm.join()
+    if prewarm.seconds is not None:
+        print(f"prewarm took {prewarm.seconds:.6f} sec")
+    if prewarm.error is not None:
+        print(f"prewarm error: {prewarm.error}")
+    for cam_idx, spec in sorted((specs or {}).items()):
+        if spec.error is not None:
+            print(f"cam{cam_idx} speculation error: {spec.error}")
+    if device.type == "cuda":
+        from .ops.threshold_cuda import kernel_launches
+
+        print(f"threshold kernel launches: {kernel_launches()} "
+              f"(prewarm {detector.prewarm_launches})")
     print(f"results written to {output_folder}")
+
+
+#: the last run's ``Prewarm`` (its ``error`` and ``seconds``), for callers
+#: that run ``main`` in their own process
+main.last_prewarm = None
 
 
 if __name__ == "__main__":

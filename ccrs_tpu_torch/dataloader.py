@@ -34,6 +34,7 @@ import glob
 import hashlib
 import logging
 import os
+import threading
 import time
 from typing import List
 
@@ -144,10 +145,16 @@ def _detect_sequence(
     board: Board,
     recorder=None,
     cam_idx: int = 0,
+    prewarm_cb=None,
     spec_factory=None,
 ) -> FrameBatch:
     """Decode + detect a whole sequence, overlapping host decoding with
     uploads and detection; returns a timestamp-sorted FrameBatch.
+
+    ``prewarm_cb(width, height, n_frames)``, when given, runs ONCE on a
+    daemon thread as soon as the first image reveals the frame size: the
+    CLI uses it to pay the process's one-time costs (library loads, the
+    first launches, the first ``torch.func`` solve) while images decode.
 
     ``spec_factory(cam_idx, times_ns_sorted, width, height)``, when given,
     is called once, when the first image reveals the frame size, and
@@ -196,6 +203,11 @@ def _detect_sequence(
                             detector.on_provisional = spec_factory(
                                 cam_idx, list(times_ns), width, height
                             )
+                        if prewarm_cb is not None:
+                            threading.Thread(
+                                target=prewarm_cb, args=(width, height, len(paths)),
+                                name="ccrs-prewarm", daemon=True,
+                            ).start()
                     chunk.append(img)
                     if recorder is not None:
                         rec_imgs.append(img)
@@ -235,7 +247,7 @@ def _cache_path(cache_dir, cam_idx, paths, detector, board):
 
 
 def _detect_or_load(paths, times, detector, board, recorder, cam_idx, cache_dir,
-                    spec_factory=None):
+                    prewarm_cb=None, spec_factory=None):
     if cache_dir:
         os.makedirs(cache_dir, exist_ok=True)
         cpath = _cache_path(cache_dir, cam_idx, paths, detector, board)
@@ -243,7 +255,7 @@ def _detect_or_load(paths, times, detector, board, recorder, cam_idx, cache_dir,
             log.info("cam%d: loading cached detections from %s", cam_idx, cpath)
             return FrameBatch.load(cpath)
     batch = _detect_sequence(
-        paths, times, detector, board, recorder, cam_idx, spec_factory
+        paths, times, detector, board, recorder, cam_idx, prewarm_cb, spec_factory
     )
     if cache_dir:
         batch.save(cpath)
@@ -259,9 +271,11 @@ def load_euroc(
     cam_num: int = 1,
     recorder=None,
     cache_dir: str = None,
+    prewarm_cb=None,
     spec_factory=None,
 ) -> List[FrameBatch]:
-    """EuRoC layout: {root}/mav0/cam{i}/data/* (``src/data_loader.rs:95``)."""
+    """EuRoC layout: {root}/mav0/cam{i}/data/* (``src/data_loader.rs:95``).
+    ``prewarm_cb``: see ``_detect_sequence``; started for camera 0 only."""
     out = []
     for cam_idx in range(cam_num):
         t0 = time.perf_counter()
@@ -270,7 +284,8 @@ def load_euroc(
         )
         times = [_path_timestamp(p) for p in paths]
         batch = _detect_or_load(
-            paths, times, detector, board, recorder, cam_idx, cache_dir, spec_factory
+            paths, times, detector, board, recorder, cam_idx, cache_dir,
+            prewarm_cb if cam_idx == 0 else None, spec_factory,
         )
         log.info(
             "cam%d: %d images, %d usable frames, %.3fs",
@@ -289,10 +304,12 @@ def load_general(
     cam_num: int = 1,
     recorder=None,
     cache_dir: str = None,
+    prewarm_cb=None,
     spec_factory=None,
 ) -> List[FrameBatch]:
     """General layout: {root}/**/cam{i}/**/* with synthetic timestamps
-    idx * 1e8 ns (``src/data_loader.rs:160-214``)."""
+    idx * 1e8 ns (``src/data_loader.rs:160-214``).  ``prewarm_cb``: see
+    ``_detect_sequence``; started for camera 0 only."""
     out = []
     for cam_idx in range(cam_num):
         paths = _list_images(
@@ -302,7 +319,7 @@ def load_general(
         out.append(
             _detect_or_load(
                 paths, times, detector, board, recorder, cam_idx, cache_dir,
-                spec_factory,
+                prewarm_cb if cam_idx == 0 else None, spec_factory,
             )
         )
     return out

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from ..board import Board
 from .families import TagFamily
@@ -194,3 +195,31 @@ def assist_merge(
             results[b][t_expect] = corners[b, s].copy()
             recovered += 1
     return recovered
+
+
+def recover_missing_tags(
+    family: TagFamily,
+    board: Board,
+    images,
+    results: List[Dict[int, np.ndarray]],
+    do_refine: bool = True,
+) -> int:
+    """Predict + refine + decode + merge in one step (a convenience
+    wrapper; the detector calls the two halves itself, around a decode
+    that reuses the primary pass's sharpened frames and maps).
+
+    ``images``: (B, H, W) tensor of ORIGINAL frames (uint8 or float32) on
+    the device the decode runs on.  Augments ``results`` in place and
+    returns the number of recovered tags.
+    """
+    from .decode import refine_decode_fused_dense
+
+    B, H, W = images.shape
+    quads, valid, exp_id = assist_candidates(board, results, W, H)
+    if quads is None:
+        return 0
+    out = refine_decode_fused_dense(
+        family, images, torch.as_tensor(quads, device=images.device),
+        torch.as_tensor(valid, device=images.device), do_refine=do_refine,
+    )
+    return assist_merge(family, exp_id, out, results)

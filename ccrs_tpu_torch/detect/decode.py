@@ -1,12 +1,18 @@
 """Batched tag decoding: quad -> homography -> bit sampling -> code match.
 
-Port of the dense path of ``ccrs_tpu/detect/decode.py``: closed-form
+Port of ``ccrs_tpu/detect/decode.py``.  The dense path, which the
+detector runs (``refine_decode_fused_dense``): closed-form
 unit-square homographies (Heckbert), bilinear bit sampling on the
 unsharp-masked frame, a local black/white threshold from the tag's own
 border ring and the surrounding white ring, and code matching as one
 (Q, nbits) x (nbits, 4*ncodes) matmul — hamming distance through the ±1
 dot-product identity (score = nbits - 2*hamming).  The ±1 products and
 their <= 64-term sums are exact in float32.
+
+The compact path it superseded is kept beside it: ``unsharp``,
+``decode_quads_compact`` over a (Q, 4, 2) quad list with a frame index per
+quad (gathers instead of per-image matmuls), and ``refine_decode_fused``,
+which refines on corner patches (``patches.py``, ``refine.py``) first.
 """
 
 from __future__ import annotations
@@ -183,4 +189,133 @@ def refine_decode_fused_dense(
     out = _decode_core_dense(family, sharp, quads, qvalid)
     out["sharp"] = sharp
     out["maps"] = maps
+    return out
+
+
+# --------------------------------------------------------------------------
+# the compact (quad list + frame index) path
+# --------------------------------------------------------------------------
+
+
+def unsharp(images, amount: float = 1.2, sigma: float = 1.2):
+    """Unsharp-mask a (B, H, W) float32 batch (separable 7-tap Gaussian,
+    edge padding).
+
+    For DECODE BIT SAMPLING only: optical blur makes the ~3 px data cells
+    of small or far tags bleed into each other and flips bits.  Corner
+    refinement keeps the original image (sharpening adds gradient ringing
+    that would bias subpixel corners).
+    """
+    r = torch.arange(-3, 4, dtype=torch.float32, device=images.device)
+    k = torch.exp(-(r * r) / (2.0 * sigma * sigma))
+    k = k / torch.sum(k)
+    x = torch.nn.functional.pad(images[:, None], (3, 3, 3, 3), mode="replicate")[:, 0]
+    H, W = images.shape[1:]
+    # separable blur via shifted sums (7 taps per axis)
+    rows = sum(k[i] * x[:, i : i + H, :] for i in range(7))
+    blur = sum(k[i] * rows[:, :, i : i + W] for i in range(7))
+    return images + amount * (images - blur)
+
+
+def _decode_core(family: TagFamily, images, quads, qframe, qvalid):
+    """Decode a compact quad list (see ``decode_quads_compact``);
+    ``images`` must be decode-ready (sharpened, float32)."""
+    dev = quads.device
+    data_uv, black_uv, white_uv = _sample_grids(family)
+    n_data, n_black = data_uv.shape[0], black_uv.shape[0]
+    all_uv = torch.as_tensor(np.concatenate([data_uv, black_uv, white_uv], axis=0), device=dev)
+    codes = torch.as_tensor(family.rotated_codes, dtype=torch.float32, device=dev)
+    nbits = codes.shape[1]
+    B, H, W = images.shape
+    flat = images.reshape(-1)
+
+    pos = _apply_h(_unit_square_homography(quads), all_uv)  # (Q, S, 2)
+    x = torch.clamp(pos[..., 0], 0.0, W - 1.001)
+    y = torch.clamp(pos[..., 1], 0.0, H - 1.001)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    fx, fy = x - x0, y - y0
+    base = qframe.to(torch.int64)[:, None] * (H * W) + y0 * W + x0
+    vals = (
+        flat[base] * (1 - fx) * (1 - fy)
+        + flat[base + 1] * fx * (1 - fy)
+        + flat[base + W] * (1 - fx) * fy
+        + flat[base + W + 1] * fx * fy
+    )  # (Q, S)
+    Q = quads.shape[0]
+    dpix = vals[:, :n_data].reshape(Q, -1, 9).mean(dim=2)
+    black = vals[:, n_data : n_data + n_black].mean(dim=1)
+    white = vals[:, n_data + n_black :].mean(dim=1)
+    thr = 0.5 * (black + white)
+    bits = torch.where(dpix > thr[:, None], torch.ones_like(dpix), -torch.ones_like(dpix))
+    contrast_ok = (white - black) > MIN_DECODE_CONTRAST
+    scores = bits @ codes.T
+    best = torch.argmax(scores, dim=1)  # ties: the first index, as jnp.argmax
+    hamming = ((nbits - torch.gather(scores, 1, best[:, None])[:, 0]) / 2).to(torch.int32)
+    tag_id = best // 4
+    rotation = best % 4
+    valid = qvalid & contrast_ok & (hamming <= family.max_hamming)
+    perm = torch.tensor(_KALIBR_PERM, dtype=torch.int64, device=dev)
+    idx = (perm[None, :] - rotation[:, None]) % 4
+    corners = torch.gather(quads, 1, idx[..., None].expand(Q, 4, 2))
+    return {
+        "tag_id": tag_id,
+        "rotation": rotation,
+        "hamming": hamming,
+        "valid": valid,
+        # separate, so that id-matching callers can relax the hamming
+        # budget without losing the contrast gate
+        "contrast_ok": contrast_ok,
+        "corners": corners,
+    }
+
+
+def decode_quads_compact(family: TagFamily, images, quads, qframe, qvalid):
+    """Decode a COMPACT quad list.
+
+    Args:
+      images: (B, H, W) float32, already sharpened for bit sampling
+        (``unsharp``).
+      quads: (Q, 4, 2) corners; rows past the real count are padding.
+      qframe: (Q,) integer frame index per quad.
+      qvalid: (Q,) bool padding mask.
+
+    Returns a dict of (Q,) tag_id / rotation / hamming / valid /
+    contrast_ok and (Q, 4, 2) canonical corners (corner 0 = the tag's
+    canonical top-left, board corner id tag*4+0).
+    """
+    return _decode_core(family, images, quads, qframe, qvalid)
+
+
+def refine_decode_fused(
+    family: TagFamily, images, quads, qframe, qvalid, do_refine: bool = True,
+    sharp=None,
+):
+    """The compact path's whole post-threshold detect step: patch gather ->
+    subpixel corner refine -> unsharp -> bit-sample decode.
+
+    Args:
+      images: (B, H, W) uint8/float32 ORIGINAL (un-sharpened) frames;
+        corner refinement samples these.
+      quads / qframe / qvalid: the compact candidate list of
+        ``decode_quads_compact``.
+      sharp: optional pre-sharpened (B, H, W) float32 frames for the bit
+        sampling — a previous call's ``out["sharp"]``, so a follow-up
+        decode of the same chunk skips the unsharp mask.
+
+    Returns the decode dict plus "sharp".
+    """
+    from .patches import extract_patches
+    from .refine import refine_patches_2stage
+
+    images = images.to(torch.float32)
+    if do_refine:
+        corners = quads.reshape(-1, 2)
+        cframe = torch.repeat_interleave(qframe.to(torch.int64), 4)
+        patches, local, offset = extract_patches(images, corners, cframe)
+        quads = (refine_patches_2stage(patches, local) + offset).reshape(quads.shape)
+    if sharp is None:
+        sharp = unsharp(images)
+    out = _decode_core(family, sharp, quads, qframe, qvalid)
+    out["sharp"] = sharp
     return out

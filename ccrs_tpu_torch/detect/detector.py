@@ -182,6 +182,9 @@ class TagDetector:
         self.stats: dict = {}
         self.debug = None
         self._tstate = None
+        #: threshold kernel launches of the last ``prewarm`` call, counted
+        #: at the launch site on the thread that ran it
+        self.prewarm_launches = 0
 
     def _shard_frames(self, frames):
         """Split a (B, ...) tensor over the mesh when sharding is on (see
@@ -212,6 +215,96 @@ class TagDetector:
         from .tracked import TrackedSession
 
         return TrackedSession(self, board, n_frames=n_frames)
+
+    def prewarm(self, height: int, width: int, board=None,
+                n_frames: int | None = None) -> None:
+        """Pay the detect path's one-time costs on dummy frames of the real
+        size, so that the first real chunk does not: the build or load of
+        the three native libraries (the CUDA kernels, the quad extractor,
+        the PNG unfilter), the CUDA context, and the first launch of every
+        device operation the pipeline uses (each loads its kernel once per
+        process).  Meant for a background thread while the host decodes
+        images; safe to skip.
+
+        Runs, on ``self.device``: one pinned upload, one ``threshold_front``
+        launch at the scale this frame size takes, the bitmap download and
+        the native quad extraction, one ``refine_decode_fused_dense`` and
+        its result download, with a board the assist decode that reuses
+        the first pass's sharpened frames and maps, and with tracking one
+        ``wave_advance``.  The dummy batch is two frames of a fixed
+        pattern: eager torch builds no graph per shape, so the cost does
+        not depend on the batch size and ``n_frames`` (kept for the JAX
+        signature) sizes nothing.
+
+        Leaves ``stats``, ``debug``, ``on_provisional`` and the tracking
+        carry as they were and draws from no random generator.  The
+        threshold kernel's launch counts (``threshold_front_cuda.launches``
+        and the library's) do go up, by ``prewarm_launches``: what the
+        wrapper counted for this thread during the call (0 on the CPU,
+        where the plain version runs).
+        """
+        from ..ops.threshold_cuda import thread_launches
+        from ..pngio import _load as load_png_library
+        from .track import carry_to_device, init_wave_carry, wave_advance
+
+        del n_frames
+        dev = self.device
+        launched = thread_launches()
+        load_png_library()
+        scale = 2 if max(height, width) >= PYRAMID_MIN_SIDE else 1
+        # a light frame with dark squares: blobs for the quad extractor
+        B, side = 2, max(8, min(height, width) // 8)
+        frame = np.full((height, width), 200, np.uint8)
+        ys = np.arange(side // 2, height - side, 2 * side)
+        xs = np.arange(side // 2, width - side, 2 * side)
+        for y in ys:
+            for x in xs:
+                frame[y : y + side, x : x + side] = 30
+        host = torch.from_numpy(np.stack([frame] * B))
+        if dev.type == "cuda":
+            part = host.pin_memory().to(dev, non_blocking=True)
+        else:
+            part = host.to(dev)
+        sH, sW = height // scale, width // scale
+        wmul = TILE * 8 // np.gcd(TILE, 8)
+        packed = threshold_front(part, scale).cpu().numpy()
+        b1 = np.unpackbits(packed, axis=-1, count=sW + ((-sW) % wmul))[:, :sH, :sW]
+        self._extract_quads(b1, board, scale)
+        # the squares themselves as the quad buffer: every slot valid
+        tl = np.stack(np.meshgrid(xs, ys), -1).reshape(-1, 2).astype(np.float32)
+        n_quads = len(tl) if board is None else min(len(tl), board.n_tags + 4)
+        offs = np.array([[0, 0], [side, 0], [side, side], [0, side]], np.float32)
+        quads = np.broadcast_to(tl[:n_quads, None] + offs, (B, n_quads, 4, 2)).copy()
+        counts = np.full(B, n_quads, np.int32)
+        out = self._dispatch_decode(part, quads, counts)
+        self._collect_results(out, B)
+        if board is not None:
+            n_assist = min(n_quads, board.n_tags)
+            aout = refine_decode_fused_dense(
+                self.family, part,
+                torch.as_tensor(quads[:, :n_assist], device=dev),
+                torch.ones((B, n_assist), dtype=torch.bool, device=dev),
+                do_refine=self.refine, sharp=out["sharp"], maps=out["maps"],
+            )
+            aout["valid"].cpu()
+            if self.track and self.refine:
+                n = board.n_tags
+                c = np.zeros((B, n, 4, 2), np.float32)
+                c[:, : min(n, n_quads)] = quads[:, : min(n, n_quads)]
+                v = np.zeros((B, n), bool)
+                v[:, : min(n, n_quads)] = True
+                carry = carry_to_device(init_wave_carry(c, v, c.copy(), v.copy()), dev)
+                board_xy = torch.as_tensor(
+                    board.p3d.reshape(n, 4, 3)[:, :, :2].astype(np.float32), device=dev
+                )
+                _, outs = wave_advance(
+                    self.family, part, board_xy, board.config.first_id, carry,
+                    torch.ones(B, dtype=torch.bool, device=dev),
+                )
+                outs[1].cpu()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.prewarm_launches = thread_launches() - launched
 
     # ----------------------------------------------------- shared helpers
     def _extract_quads(self, b1, board, scale):

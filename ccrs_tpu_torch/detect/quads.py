@@ -3,7 +3,10 @@
 The irregular stage of the detector (connected components, contours, quad
 fit) stays host C++: ``ccrs_tpu/native/quadproc.cpp``, compiled with the
 JAX package's g++ flags into the port's own ``ccrs_tpu_torch/_build/`` at
-first use.  Nothing is written under ``ccrs_tpu/``.
+first use.  Nothing is written under ``ccrs_tpu/``.  The library's two
+host corner refinements (``refine_corners_native``,
+``refine_corners_patches_native``) are bound too; the detector refines on
+the device and does not call them.
 """
 
 from __future__ import annotations
@@ -53,6 +56,21 @@ def _load():
             ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ]
         lib.quadproc_extract_batch.restype = None
+        lib.refine_corners_native.argtypes = [
+            ctypes.POINTER(ctypes.c_float),  # imgs
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H W
+            ctypes.POINTER(ctypes.c_float),  # corners (n, 2) in/out
+            ctypes.POINTER(ctypes.c_int32),  # img_idx (n,)
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, win, iters
+        ]
+        lib.refine_corners_native.restype = None
+        lib.refine_corners_patches.argtypes = [
+            ctypes.POINTER(ctypes.c_float),  # patches (n, P, P)
+            ctypes.c_int, ctypes.c_int,  # n, P
+            ctypes.POINTER(ctypes.c_float),  # corners_local (n, 2) in/out
+            ctypes.c_int, ctypes.c_int,  # win, iters
+        ]
+        lib.refine_corners_patches.restype = None
         _lib = lib
         return lib
 
@@ -86,3 +104,71 @@ def extract_quads_batch(
         max_quads, min_area, ctypes.c_float(min_fill),
     )
     return quads.reshape(B, max_quads, 4, 2), counts
+
+
+def refine_corners_native(
+    images: np.ndarray,
+    corners: np.ndarray,
+    win: int = 4,
+    iters: int = 6,
+    counts: np.ndarray = None,
+    group: int = 1,
+) -> np.ndarray:
+    """Native cornerSubPix-style refinement on the host (the math of
+    ``detect/refine.py::refine_corners``; OpenMP over corners).
+
+    Args:
+      images: (B, H, W) float32 grayscale.
+      corners: (B, M, 2) float32 initial positions.
+      counts: optional (B,) — only the first counts[b]*group rows of image
+        b are real; padding rows are skipped.
+      group: corners per counted unit (4 for quads).
+
+    Returns refined (B, M, 2) float32.
+    """
+    lib = _load()
+    images = np.ascontiguousarray(images, dtype=np.float32)
+    B, H, W = images.shape
+    M = corners.shape[1]
+    out = np.ascontiguousarray(corners, dtype=np.float32).copy()
+    if counts is None:
+        flat = out.reshape(-1, 2)
+        idx = np.repeat(np.arange(B, dtype=np.int32), M)
+    else:
+        n_real = np.minimum(np.asarray(counts) * group, M)
+        sel_b = np.repeat(np.arange(B), n_real)
+        sel_m = np.concatenate([np.arange(n) for n in n_real]).astype(np.int64)
+        flat = np.ascontiguousarray(out[sel_b, sel_m], dtype=np.float32)
+        idx = sel_b.astype(np.int32)
+    if flat.shape[0]:
+        lib.refine_corners_native(
+            images.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            B, H, W,
+            flat.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            flat.shape[0], win, iters,
+        )
+    if counts is None:
+        return flat.reshape(B, M, 2)
+    out[sel_b, sel_m] = flat
+    return out
+
+
+def refine_corners_patches_native(
+    patches: np.ndarray, local: np.ndarray, win: int = 4, iters: int = 6
+) -> np.ndarray:
+    """Refine patch-local corner coordinates on the host (patches from
+    ``detect.patches.extract_patches``).  patches: (n, P, P) float32;
+    local: (n, 2) float32."""
+    lib = _load()
+    patches = np.ascontiguousarray(patches, dtype=np.float32)
+    out = np.ascontiguousarray(local, dtype=np.float32).copy()
+    n, P, _ = patches.shape
+    if n:
+        lib.refine_corners_patches(
+            patches.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            n, P,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            win, iters,
+        )
+    return out

@@ -78,6 +78,24 @@ def _pack(binary):
     return (bits * weights).sum(dim=-1).to(torch.uint8)
 
 
+def adaptive_threshold_packed2(
+    images, tile: int = TILE, min_contrast: float = MIN_CONTRAST
+):
+    """Two erosion levels in one pass: (B, 2, H, W//8) packed binaries.
+
+    Level 0 = one white dilation (the standard separation pass); level 1 =
+    two dilations.  Anti-aliased Kalibr corner-square bridges grow with the
+    tag scale: at ~140 px tags they survive a single erosion and merge the
+    tag into a cross, so quad extraction can run on both levels.  (The
+    detector computes level 1 on the host from the downloaded level-0
+    bitmap instead, ``detector._dilate_white_host``.)"""
+    b1 = adaptive_threshold(images, tile, min_contrast, separate=True)
+    b2 = (F.max_pool2d(b1[:, None].to(torch.float32), 3, stride=1, padding=1)[:, 0] > 0).to(
+        torch.uint8
+    )
+    return torch.stack([_pack(b1), _pack(b2)], dim=1)
+
+
 def _pool2(images):
     """2x2 mean pyramid level in float32; odd trailing rows/cols drop.
     The sum order is fixed so the CUDA kernel can match it exactly."""

@@ -3,9 +3,10 @@
 The system has no trained weights; its state is the board geometry, the
 tag-family code table (read from the same file by both packages), the
 camera parameters and the observations.  These helpers read the JAX
-package's ``GenericModel``, ``Board``, ``FrameBatch`` and ``RvecTvec``
-through their numpy attributes and build the port's objects, so both
-packages compute from identical state.  Nothing here imports jax: any
+package's ``GenericModel``, ``Board``, ``FrameBatch``, ``RvecTvec`` and
+solver results through their numpy attributes and build the port's objects,
+so both packages compute from identical state and their results compare
+field by field.  Nothing here imports jax: any
 object with the same attributes converts.
 """
 
@@ -14,11 +15,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .board import Board, BoardConfig
 from .calib.frames import FrameBatch
 from .detect.track import carry_to_device
 from .models import GenericModel
+from .solve.lm import BAResult, MultiBAResult
 from .types import RvecTvec
 
 
@@ -67,3 +70,27 @@ def wave_carry_from_ref(carry, device="cpu"):
 def rvectvec_from_ref(rt) -> RvecTvec:
     """RvecTvec from an object with ``rvec`` and ``tvec``."""
     return RvecTvec(np.asarray(rt.rvec, np.float64), np.asarray(rt.tvec, np.float64))
+
+
+def _f64(a):
+    return torch.as_tensor(np.array(a, np.float64))
+
+
+def ba_result_from_ref(res) -> BAResult:
+    """The port's ``BAResult`` (float64 CPU tensors, Python ints) from an
+    object with ``theta``, ``poses``, ``cost``, ``n_iters`` and, for a
+    mixed solve, ``n_polish``."""
+    return BAResult(
+        _f64(res.theta), _f64(res.poses), _f64(res.cost), int(res.n_iters),
+        int(np.asarray(getattr(res, "n_polish", 0))),
+    )
+
+
+def multi_ba_result_from_ref(res) -> MultiBAResult:
+    """The port's ``MultiBAResult`` from an object with ``theta``, ``ext``,
+    ``poses``, ``cost`` and ``n_iters``; ``n_polish`` is 0 where the
+    source has none (the JAX package's joint result does not count it)."""
+    return MultiBAResult(
+        _f64(res.theta), _f64(res.ext), _f64(res.poses), _f64(res.cost),
+        int(res.n_iters), int(np.asarray(getattr(res, "n_polish", 0))),
+    )

@@ -12,7 +12,7 @@ points, loaded with ctypes) and rebuilt when the source is newer; the
 build's ``ptxas -v`` report (registers, shared memory, spills) is kept in
 ``_build/libccrs_kernels.ptxas.txt`` (``ptxas_report``).
 ``threshold_front_cuda.launches`` counts the calls that launched the
-kernel.
+kernel, ``thread_launches()`` those of the calling thread.
 """
 
 from __future__ import annotations
@@ -31,6 +31,9 @@ _SO = os.path.join(BUILD_DIR, "libccrs_kernels.so")
 _LOG = os.path.join(BUILD_DIR, "libccrs_kernels.ptxas.txt")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+#: thread ident -> launches made on that thread (see ``thread_launches``)
+_by_thread: dict[int, int] = {}
 _lib = None
 
 
@@ -83,6 +86,15 @@ def kernel_launches() -> int:
     return int(_load().ccrs_threshold_kernel_launches())
 
 
+def thread_launches() -> int:
+    """Kernel launches made by the calling thread so far, counted where
+    ``threshold_front_cuda`` launches.  A thread reads it before and after
+    its work: the difference is its own launches, whatever other threads
+    launch meanwhile."""
+    with _count_lock:
+        return _by_thread.get(threading.get_ident(), 0)
+
+
 def threshold_front_cuda(images, scale: int = 1, tile: int = 4,
                          min_contrast: float = 20.0):
     """(B, H, W) uint8/float32 CUDA tensor -> packed (B, sH_pad, sW_pad/8)
@@ -122,8 +134,11 @@ def threshold_front_cuda(images, scale: int = 1, tile: int = 4,
     if rc != 0:
         msg = lib.ccrs_cuda_error_string(rc).decode()
         raise RuntimeError(f"threshold kernel launch failed: {msg} ({rc})")
-    threshold_front_cuda.launches += 1
-    threshold_front_cuda.launches_u8 += images.dtype == torch.uint8
+    with _count_lock:  # the warm-up thread launches beside the main thread
+        threshold_front_cuda.launches += 1
+        threshold_front_cuda.launches_u8 += images.dtype == torch.uint8
+        ident = threading.get_ident()
+        _by_thread[ident] = _by_thread.get(ident, 0) + 1
     return out
 
 

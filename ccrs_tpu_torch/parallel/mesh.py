@@ -56,13 +56,16 @@ import torch
 from ..solve.lm import (
     LMOptions,
     MultiBAResult,
+    _as,
     _gather,
     _PerDevice,
+    _polish_jac_f32,
     _split,
     ba_frame_fns,
     ba_lm,
     ba_step,
     multi_ba_lm,
+    polish_rtol,
 )
 
 Mesh = List[torch.device]
@@ -187,11 +190,13 @@ def make_ba_solver(
     huber_delta: float = 1.0,
     max_iters: int = 60,
     rtol: float = 1e-14,
+    jac_f32: bool = False,
 ):
     """A full frame-sharded LM solve over ``mesh``: ``ba_solve``'s body
     (``solve.lm.ba_lm``: damping schedule, accept/reject, bounds, free mask,
     Huber IRLS) with its frames split over the mesh and ``mesh.py``'s rules
-    (the stall exit counts rejections only).
+    (the stall exit counts rejections only).  ``jac_f32``: float32
+    Jacobians, as ``ba_solve``'s.
 
     Returned solve: ``solve(theta0, poses0, p3d, p2d, w, lo, hi, free,
     frame_valid) -> BAResult(theta, poses, cost, n_iters)`` with F a
@@ -203,7 +208,8 @@ def make_ba_solver(
 
     def solve(theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid):
         return ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free,
-                     frame_valid, mesh, one_focal, opts, mesh_rules=True)
+                     frame_valid, mesh, one_focal, opts, mesh_rules=True,
+                     jac_f32=jac_f32)
 
     return solve
 
@@ -220,6 +226,7 @@ def make_multi_ba_solver(
     huber_delta: float = 1.0,
     max_iters: int = 60,
     rtol: float = 1e-14,
+    jac_f32: bool = False,
 ):
     """A full frame-sharded joint multi-camera BA over ``mesh``:
     ``ba_solve_multi``'s body (``solve.lm.multi_ba_lm``: per-camera
@@ -227,9 +234,9 @@ def make_multi_ba_solver(
     ``src/util.rs:567-715``) with its frames split over the mesh and
     ``mesh.py``'s stall rule.  Board-pose blocks stay on their shards;
     each iteration reduces one packed (U | Schur correction | rhs |
-    gradient) system of size (2M+2, M), M = C*k + 6C.  The JAX solver's
-    ``jac_f32`` option is not ported: the port solves in float64
-    throughout.
+    gradient) system of size (2M+2, M), M = C*k + 6C.  ``jac_f32``:
+    float32 Jacobians, residual and cost in the caller's dtype (see
+    ``solve.lm.ba_solve``).
 
     Returned solve: ``solve(theta0 (C,k), ext0 (C,6), poses0 (F,6), p3d,
     p2d (C,F,N,2), w (C,F,N), lo, hi, free (C,k), cam_frame_valid (C,F),
@@ -244,7 +251,7 @@ def make_multi_ba_solver(
               frame_valid):
         return multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
                            cam_frame_valid, frame_valid, mesh, one_focal, opts,
-                           mesh_rules=True)
+                           mesh_rules=True, jac_f32=jac_f32)
 
     return solve
 
@@ -268,17 +275,27 @@ def multi_ba_sharded(
     mesh: Optional[Mesh] = None,
 ) -> MultiBAResult:
     """Frame-sharded joint multi-camera BA over the mesh (default: every
-    visible card) — the route of ``calib_all_camera_with_extrinsics`` when
-    the mesh has more than one device.
+    visible card) in one precision (``theta0``'s) — the ``solver="f64"``
+    route of ``calib_all_camera_with_extrinsics`` when the mesh has more
+    than one device.
 
-    The counterpart of ``ccrs_tpu``'s ``multi_ba_sharded_mixed``: it takes
-    ``ba_solve_multi``'s argument layout with the frame axis unpadded, pads
-    F to a multiple of the mesh size (padding frames carry zero
-    frame_valid and weight), and crops the poses back to F.  The JAX
-    function runs a float32 descent and then a float64 polish, because the
-    TPU emulates float64; the port solves in float64 throughout, as its
-    ``ba_solve_multi`` does, with that solver's iteration limit and rtol.
+    It takes ``ba_solve_multi``'s argument layout with the frame axis
+    unpadded, pads F to a multiple of the mesh size (padding frames carry
+    zero frame_valid and weight), and crops the poses back to F, with
+    ``ba_solve_multi``'s iteration limit and rtol.
+    ``multi_ba_sharded_mixed`` is the two-stage solve.
     """
+    mesh, args, F = _pad_to_mesh(mesh, poses0, p2d, w, cam_frame_valid, frame_valid)
+    poses0, p2d, w, cam_frame_valid, frame_valid = args
+    res = make_multi_ba_solver(project_fn, mesh, one_focal, huber_delta, max_iters)(
+        theta0, ext0, poses0, p3d, p2d, w, lo, hi, free, cam_frame_valid, frame_valid,
+    )
+    return res._replace(poses=res.poses[:F])
+
+
+def _pad_to_mesh(mesh, poses0, p2d, w, cam_frame_valid, frame_valid):
+    """(mesh or the default one, the frame-axis arguments padded to a
+    multiple of its size, the unpadded F)."""
     mesh = make_mesh() if mesh is None else mesh
     D = len(_check_mesh(mesh))
     F = poses0.shape[0]
@@ -286,10 +303,57 @@ def multi_ba_sharded(
     if pad:
         poses0, frame_valid = _pad(poses0, pad), _pad(frame_valid, pad)
         p2d, w, cam_frame_valid = (_pad(a, pad, 1) for a in (p2d, w, cam_frame_valid))
-    res = make_multi_ba_solver(project_fn, mesh, one_focal, huber_delta, max_iters)(
-        theta0, ext0, poses0, p3d, p2d, w, lo, hi, free, cam_frame_valid, frame_valid,
-    )
-    return res._replace(poses=res.poses[:F])
+    return mesh, (poses0, p2d, w, cam_frame_valid, frame_valid), F
+
+
+def multi_ba_sharded_mixed(
+    project_fn,
+    theta0,
+    ext0,
+    poses0,
+    p3d,
+    p2d,
+    w,
+    lo,
+    hi,
+    free,
+    cam_frame_valid,
+    frame_valid,
+    one_focal: bool = False,
+    huber_delta: float = 1.0,
+    max_iters: int = 60,
+    polish_iters: int = 10,  # matches ba_solve_multi_mixed
+    mesh: Optional[Mesh] = None,
+    polish_jac_f32: bool = False,  # full-precision J: see ba_solve_multi_mixed
+) -> MultiBAResult:
+    """Frame-sharded, mixed-precision joint multi-camera BA over the mesh
+    (default: every visible card) — the sharded twin of
+    ``solve.lm.ba_solve_multi_mixed`` and the ``solver="mixed"`` route of
+    ``calib_all_camera_with_extrinsics`` when the mesh has more than one
+    device: a float32 descent (``rtol=1e-6``), then a polish of at most
+    ``polish_iters`` iterations in ``theta0``'s dtype (``polish_rtol()``;
+    ``CCRS_POLISH_JAC32`` as there), both through ``make_multi_ba_solver``.
+
+    Takes ``ba_solve_multi``'s argument layout with the frame axis
+    unpadded (see ``multi_ba_sharded``); returns a ``MultiBAResult`` with
+    the poses cropped back to F, ``n_iters`` over both stages and
+    ``n_polish`` for the second.
+    """
+    polish_jac_f32 = _polish_jac_f32(polish_jac_f32)
+    mesh, args, F = _pad_to_mesh(mesh, poses0, p2d, w, cam_frame_valid, frame_valid)
+    poses0, p2d, w, cam_frame_valid, frame_valid = args
+    s1 = make_multi_ba_solver(
+        project_fn, mesh, one_focal, huber_delta, max_iters, rtol=1e-6
+    )(*_as(torch.float32, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
+           cam_frame_valid, frame_valid))
+    dt = theta0.dtype
+    s2 = make_multi_ba_solver(
+        project_fn, mesh, one_focal, huber_delta, polish_iters,
+        rtol=polish_rtol(), jac_f32=polish_jac_f32,
+    )(s1.theta.to(dt), s1.ext.to(dt), s1.poses.to(dt), p3d, p2d, w, lo, hi, free,
+      cam_frame_valid, frame_valid)
+    return MultiBAResult(s2.theta, s2.ext, s2.poses[:F], s2.cost,
+                         s1.n_iters + s2.n_iters, s2.n_iters)
 
 
 # --------------------------------------------------------------------------

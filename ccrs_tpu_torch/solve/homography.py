@@ -34,6 +34,12 @@ def _where_small(x, tiny):
     return torch.where(x.abs() > tiny, x, torch.full_like(x, tiny))
 
 
+def lift(p, l):
+    """Division-model lifting (x, y) -> (x, y, 1 + l r^2)."""
+    r2 = torch.sum(p * p, dim=-1)
+    return torch.cat([p, (1.0 + l * r2)[..., None]], dim=-1)
+
+
 def _solve_h6(p0, p1):
     """Minimal 6-point solver, batched: p0, p1 (S, 6, 2) normalized pairs.
 

@@ -1,7 +1,7 @@
 """Levenberg–Marquardt cores: dense small-problem LM and Schur-structured
 single-camera bundle adjustment.
 
-Port of the float64 part of ``ccrs_tpu/solve/lm.py``:
+Port of ``ccrs_tpu/solve/lm.py``:
 
 - parameters are fixed-shape tensors — intrinsics ``theta`` plus a
   ``(F, 6)`` pose batch; variable frame and corner counts are weight masks;
@@ -18,15 +18,19 @@ to the host once.  Cholesky factorizations of matrices that are not
 positive definite yield NaN (``cholesky_nan``), as ``jnp.linalg.cholesky``
 does, and the LM rejects such steps through its finiteness guard.
 
-``ba_solve_multi`` is the joint multi-camera solve.  The mixed-precision
-solvers of the JAX package (``ba_solve_mixed``, ``ba_solve_multi_mixed``)
-are not ported (ROADMAP A.8): their float32 stage exists for the TPU's
-emulated float64, and the port solves in float64 throughout.
+``ba_solve_multi`` is the joint multi-camera solve.  ``ba_solve_mixed`` and
+``ba_solve_multi_mixed`` are the two-stage mixed-precision solvers: the
+same bodies run once in float32 (the bulk descent, ``rtol=1e-6``) and once
+in the caller's dtype (the polish, ``polish_rtol()``), optionally with
+float32 Jacobians (``jac_f32``).  Every body takes its dtype from
+``theta0``; TF32 is off for the whole package, so the float32 stage
+multiplies in full float32.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from typing import Callable, NamedTuple, Optional
 
@@ -34,6 +38,26 @@ import torch
 from torch.func import jacfwd, vmap
 
 from . import se3
+
+
+def polish_rtol() -> float:
+    """Relative-cost stop of the polish stage of the mixed solvers
+    (``ba_solve_mixed``, ``ba_solve_multi_mixed``): 1e-10 unless
+    ``CCRS_POLISH_RTOL`` overrides it ("1e-14" restores the
+    deep-convergence stop of the plain solvers)."""
+    return float(os.environ.get("CCRS_POLISH_RTOL", "1e-10"))
+
+
+def _polish_jac_f32(default: bool, force_on: bool = True) -> bool:
+    """The polish stage's ``jac_f32`` after ``CCRS_POLISH_JAC32``: "0"
+    forces float64 Jacobians; "1" forces float32 ones where ``force_on``
+    (the joint solvers; the single-camera solver only honours "0")."""
+    env = os.environ.get("CCRS_POLISH_JAC32", "")
+    if env == "0":
+        return False
+    if env == "1" and force_on:
+        return True
+    return default
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,6 +298,9 @@ class BAResult(NamedTuple):
     poses: torch.Tensor  # (F, 6) rvec|tvec
     cost: torch.Tensor
     n_iters: int
+    #: the polish stage's share of n_iters (mixed solvers only; 0 for a
+    #: plain single-precision solve)
+    n_polish: int = 0
 
 
 def expand_theta(theta, one_focal: bool):
@@ -305,6 +332,7 @@ def ba_solve(
     max_iters: int = 60,
     huber_delta: float = 1.0,
     rtol: float = 1e-14,
+    jac_f32: bool = False,
 ) -> BAResult:
     """Single-camera BA: intrinsics + per-frame board poses.
 
@@ -319,6 +347,12 @@ def ba_solve(
       frame_valid: (F,) 0/1 — frames excluded from the problem entirely
         (the reference skips frames with <10 valid pose-init points,
         src/util.rs:431).
+      jac_f32: evaluate the JACOBIANS in float32 (residuals, costs and
+        the accept/convergence logic stay in the caller's dtype).
+        Gauss-Newton with an approximate J converges to the fixed point
+        of J~tWr = 0: a 1e-7-relative J error shifts the optimum by
+        O(1e-7) in parameters and only to second order in RMS.  No
+        effect on a float32 solve.
 
     All tensors share one device and dtype (float64 for the calibration).
     Replaces the reference's calib_camera solve (src/util.rs:384-490): the
@@ -327,29 +361,60 @@ def ba_solve(
     """
     opts = LMOptions(max_iters=max_iters, huber_delta=huber_delta, rtol=rtol)
     return ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid,
-                 [theta0.device], one_focal, opts)
+                 [theta0.device], one_focal, opts, jac_f32=jac_f32)
 
 
-def ba_frame_fns(project_fn, p3d, one_focal: bool):
-    """(residuals, jacobians) over a frame batch: ``residuals(theta, poses,
-    p2d)`` (F, N, 2) and ``jacobians`` -> ((Jt, Jp), r), Jt (F, N, 2, k),
-    Jp (F, N, 2, 6), under the Jacobian lock."""
-
-    def frame_residual(theta, pose, p2d_f):
-        params = expand_theta(theta, one_focal)
-        pc = se3.transform(pose[:3], pose[3:], p3d)
-        proj, _ = project_fn(params, pc)
-        return proj - p2d_f  # (N, 2)
-
-    def r_aux(theta, pose, p2d_f):
-        r = frame_residual(theta, pose, p2d_f)
+def _with_aux(f):
+    """``f`` returning its value twice, so ``jacfwd(has_aux=True)`` hands
+    the residual back beside its Jacobians."""
+    def r_aux(*args):
+        r = f(*args)
         return r, r
 
-    residuals = vmap(frame_residual, in_dims=(None, 0, 0))
-    jacobians = _serialized(vmap(
-        jacfwd(r_aux, argnums=(0, 1), has_aux=True), in_dims=(None, 0, 0)
-    ))
-    return residuals, jacobians
+    return r_aux
+
+
+def _jacobians_f32(jac32, residuals):
+    """Jacobians from ``jac32`` (built on float32 board points) at float32
+    copies of the arguments, cast back to the arguments' dtype, beside the
+    residual in that dtype: -> (Js, r) as the full-precision function."""
+    f32 = torch.float32
+
+    def jacobians(*args):
+        Js, _ = jac32(*(a.to(f32) for a in args))
+        return tuple(J.to(args[0].dtype) for J in Js), residuals(*args)
+
+    return jacobians
+
+
+def ba_frame_fns(project_fn, p3d, one_focal: bool, jac_f32: bool = False):
+    """(residuals, jacobians) over a frame batch: ``residuals(theta, poses,
+    p2d)`` (F, N, 2) and ``jacobians`` -> ((Jt, Jp), r), Jt (F, N, 2, k),
+    Jp (F, N, 2, 6), under the Jacobian lock.  ``jac_f32``: the Jacobians
+    come from the same residual body on float32 copies (see ``ba_solve``);
+    ignored when ``p3d`` is float32 already."""
+
+    def residual_with(pts):
+        # ONE residual body for both precisions: the float32-Jacobian path
+        # differentiates the same math on float32 points
+        def frame_residual(theta, pose, p2d_f):
+            params = expand_theta(theta, one_focal)
+            pc = se3.transform(pose[:3], pose[3:], pts)
+            proj, _ = project_fn(params, pc)
+            return proj - p2d_f  # (N, 2)
+
+        return frame_residual
+
+    def jac_of(pts):
+        return _serialized(vmap(
+            jacfwd(_with_aux(residual_with(pts)), argnums=(0, 1), has_aux=True),
+            in_dims=(None, 0, 0),
+        ))
+
+    residuals = vmap(residual_with(p3d), in_dims=(None, 0, 0))
+    if jac_f32 and p3d.dtype != torch.float32:
+        return residuals, _jacobians_f32(jac_of(p3d.to(torch.float32)), residuals)
+    return residuals, jac_of(p3d)
 
 
 def ba_step(jacs, theta, poses_s, p2d_s, w_s, valid_s, free, lam, devices,
@@ -415,7 +480,8 @@ def ba_step(jacs, theta, poses_s, p2d_s, w_s, valid_s, free, lam, devices,
 
 
 def ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid,
-          devices, one_focal: bool, opts: LMOptions, mesh_rules: bool = False):
+          devices, one_focal: bool, opts: LMOptions, mesh_rules: bool = False,
+          jac_f32: bool = False):
     """The single-camera LM (``ba_solve``'s arguments) with the frames split
     into contiguous shards over ``devices``: poses and observations stay
     on their shard, each iteration reduces one packed system (``ba_step``)
@@ -424,6 +490,7 @@ def ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid,
 
     ``mesh_rules``: the JAX package's frame-sharded rules (``ba_step``'s
     step order, and a stall on the rejection count alone, whatever lam).
+    ``jac_f32``: float32 Jacobians (see ``ba_solve``).
     """
     dev0 = devices[0]
     lo, hi, free = lo.to(dev0), hi.to(dev0), free.to(dev0)
@@ -431,7 +498,7 @@ def ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid,
     fv_s = _split(frame_valid, devices)
     w_s = [ws * fv[:, None] for ws, fv in zip(_split(w, devices), fv_s)]
     p2d_s = _split(p2d, devices)
-    fns = [ba_frame_fns(project_fn, p3d_r.on(d), one_focal) for d in devices]
+    fns = [ba_frame_fns(project_fn, p3d_r.on(d), one_focal, jac_f32) for d in devices]
     jacs = [jac for _, jac in fns]
 
     def cost_of(theta, poses_s):
@@ -460,6 +527,52 @@ def ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid,
     return BAResult(theta, _gather(poses_s, dev0), st.cost, st.it)
 
 
+
+def _as(dtype, *tensors):
+    return [t.to(dtype) for t in tensors]
+
+
+def ba_solve_mixed(
+    project_fn,
+    theta0,
+    poses0,
+    p3d,
+    p2d,
+    w,
+    lo,
+    hi,
+    free,
+    frame_valid,
+    one_focal: bool = False,
+    max_iters: int = 60,
+    huber_delta: float = 1.0,
+    polish_iters: int = 12,
+    polish_jac_f32: bool = True,
+) -> BAResult:
+    """Two-stage mixed-precision single-camera BA: LM only needs full
+    precision near the optimum.  Stage 1 runs the bulk descent in float32
+    (``rtol=1e-6``, the float32 cost plateau); stage 2 polishes from that
+    state in the caller's dtype for at most ``polish_iters`` iterations
+    (stop: ``polish_rtol()``), with float32 JACOBIANS by default
+    (residual, cost and accept stay in the caller's dtype — see
+    ``ba_solve``'s ``jac_f32``; ``CCRS_POLISH_JAC32=0`` restores
+    full-precision polish Jacobians).  ``n_iters`` counts both stages,
+    ``n_polish`` the second."""
+    polish_jac_f32 = _polish_jac_f32(polish_jac_f32, force_on=False)
+    s1 = ba_solve(
+        project_fn,
+        *_as(torch.float32, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid),
+        one_focal=one_focal, max_iters=max_iters, huber_delta=huber_delta, rtol=1e-6,
+    )
+    dt = theta0.dtype
+    s2 = ba_solve(
+        project_fn, s1.theta.to(dt), s1.poses.to(dt), p3d, p2d, w, lo, hi, free,
+        frame_valid, one_focal=one_focal, max_iters=polish_iters,
+        huber_delta=huber_delta, rtol=polish_rtol(), jac_f32=polish_jac_f32,
+    )
+    return BAResult(s2.theta, s2.poses, s2.cost, s1.n_iters + s2.n_iters, s2.n_iters)
+
+
 # --------------------------------------------------------------------------
 # multi-camera joint bundle adjustment
 # --------------------------------------------------------------------------
@@ -471,6 +584,8 @@ class MultiBAResult(NamedTuple):
     poses: torch.Tensor  # (F, 6) board->cam0
     cost: torch.Tensor
     n_iters: int
+    #: the polish stage's share of n_iters (mixed solvers only)
+    n_polish: int = 0
 
 
 def ba_solve_multi(
@@ -490,6 +605,7 @@ def ba_solve_multi(
     max_iters: int = 60,
     huber_delta: float = 1.0,
     rtol: float = 1e-14,
+    jac_f32: bool = False,
 ) -> MultiBAResult:
     """Joint multi-camera BA: per-camera intrinsics + camera extrinsics
     (T_i_0) + shared board poses (T_0_b per frame).
@@ -501,9 +617,8 @@ def ba_solve_multi(
     Board poses are Schur-eliminated (F independent 6x6 blocks); the
     reduced system is (C*k + 6C) dense, solved by Cholesky.
 
-    The port solves in float64 from the first iteration, where
-    ``ccrs_tpu`` runs ``ba_solve_multi_mixed`` (a float32 descent, then a
-    float64 polish); both stop at the same float64 optimum.
+    One precision from the first iteration to the last (``theta0``'s);
+    ``ba_solve_multi_mixed`` is the two-stage solve.
 
     Args:
       theta0: (C, k) reduced intrinsics per camera.
@@ -513,47 +628,53 @@ def ba_solve_multi(
       lo/hi/free: (C, k) per-camera bounds/free masks on theta.
       cam_frame_valid: (C, F) camera c contributes frame f.
       frame_valid: (F,) frame participates at all.
+      jac_f32: float32 Jacobians, residual and cost in the caller's dtype
+        (see ``ba_solve``).
     """
     opts = LMOptions(max_iters=max_iters, huber_delta=huber_delta, rtol=rtol)
     return multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
-                       cam_frame_valid, frame_valid, [theta0.device], one_focal, opts)
+                       cam_frame_valid, frame_valid, [theta0.device], one_focal, opts,
+                       jac_f32=jac_f32)
 
 
-def multi_frame_fns(project_fn, p3d, one_focal: bool, C: int):
+def multi_frame_fns(project_fn, p3d, one_focal: bool, C: int, jac_f32: bool = False):
     """Per camera (residuals, jacobians) over a frame batch, each taking
-    (theta_c, e_c, poses, p2d_c); jacobians -> ((Jt, Je, Jp), r)."""
+    (theta_c, e_c, poses, p2d_c); jacobians -> ((Jt, Je, Jp), r).
+    ``jac_f32``: as in ``ba_frame_fns``."""
 
-    def cam0_residual(theta_c, e_c, pose_f, p2d_cf):
-        params = expand_theta(theta_c, one_focal)
-        pc = se3.transform(pose_f[:3], pose_f[3:], p3d)
-        proj, _ = project_fn(params, pc)
-        return proj - p2d_cf
+    def residuals_with(pts):
+        # single residual bodies for both precisions (see ba_frame_fns)
+        def cam0_residual(theta_c, e_c, pose_f, p2d_cf):
+            params = expand_theta(theta_c, one_focal)
+            pc = se3.transform(pose_f[:3], pose_f[3:], pts)
+            proj, _ = project_fn(params, pc)
+            return proj - p2d_cf
 
-    def cam_i_residual(theta_c, e_c, pose_f, p2d_cf):
-        params = expand_theta(theta_c, one_focal)
-        rvc, tvc = se3.compose(e_c[:3], e_c[3:], pose_f[:3], pose_f[3:])
-        pc = se3.transform(rvc, tvc, p3d)
-        proj, _ = project_fn(params, pc)
-        return proj - p2d_cf
+        def cam_i_residual(theta_c, e_c, pose_f, p2d_cf):
+            params = expand_theta(theta_c, one_focal)
+            rvc, tvc = se3.compose(e_c[:3], e_c[3:], pose_f[:3], pose_f[3:])
+            pc = se3.transform(rvc, tvc, pts)
+            proj, _ = project_fn(params, pc)
+            return proj - p2d_cf
 
-    def with_aux(f):
-        def r_aux(*args):
-            r = f(*args)
-            return r, r
+        # the camera split is static: cam 0 sees the board pose directly,
+        # cams >= 1 through their extrinsic (a Python-level choice, never
+        # a data-dependent branch)
+        return [cam0_residual] + [cam_i_residual] * (C - 1)
 
-        return r_aux
+    def jacs_of(pts):
+        return [
+            _serialized(vmap(jacfwd(_with_aux(f), argnums=(0, 1, 2), has_aux=True),
+                             in_dims=(None, None, 0, 0)))
+            for f in residuals_with(pts)
+        ]
 
-    # the camera split is static: cam 0 sees the board pose directly, cams
-    # >= 1 through their extrinsic (a Python-level choice, never a
-    # data-dependent branch)
-    fns = [cam0_residual] + [cam_i_residual] * (C - 1)
-    residuals = [vmap(f, in_dims=(None, None, 0, 0)) for f in fns]
-    jacobians = [
-        _serialized(vmap(jacfwd(with_aux(f), argnums=(0, 1, 2), has_aux=True),
-                         in_dims=(None, None, 0, 0)))
-        for f in fns
-    ]
-
+    residuals = [vmap(f, in_dims=(None, None, 0, 0)) for f in residuals_with(p3d)]
+    if jac_f32 and p3d.dtype != torch.float32:
+        jacobians = [_jacobians_f32(j, r)
+                     for j, r in zip(jacs_of(p3d.to(torch.float32)), residuals)]
+    else:
+        jacobians = jacs_of(p3d)
     return list(zip(residuals, jacobians))
 
 
@@ -595,7 +716,7 @@ def _multi_shard_blocks(fns, theta, ext, poses, p2d, w, free, ext_free, huber_de
 
 def multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
                 cam_frame_valid, frame_valid, devices, one_focal: bool,
-                opts: LMOptions, mesh_rules: bool = False):
+                opts: LMOptions, mesh_rules: bool = False, jac_f32: bool = False):
     """The joint multi-camera LM (``ba_solve_multi``'s arguments) with the
     frames split into contiguous shards over ``devices``: board poses stay
     on their shard and are Schur-eliminated there; each iteration reduces
@@ -605,7 +726,8 @@ def multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
     frames carry frame_valid = 0); results on the first device.
 
     ``mesh_rules``: stall on the rejection count alone, whatever lam (the
-    JAX package's frame-sharded rule).
+    JAX package's frame-sharded rule).  ``jac_f32``: float32 Jacobians
+    (see ``ba_solve``).
     """
     C = p2d.shape[0]
     k = theta0.shape[1]
@@ -624,7 +746,7 @@ def multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
     fv_s = _split(frame_valid, devices)
     p2d_s = _split(p2d, devices, dim=1)
     w_s = _split(w, devices, dim=1)
-    fns = [multi_frame_fns(project_fn, p3d_r.on(d), one_focal, C) for d in devices]
+    fns = [multi_frame_fns(project_fn, p3d_r.on(d), one_focal, C, jac_f32) for d in devices]
     eye6 = [torch.eye(6, dtype=dtype, device=d) for d in devices]
 
     def cost_of(theta, ext, poses_s):
@@ -688,3 +810,51 @@ def multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
         if done:
             break
     return MultiBAResult(theta, ext, _gather(poses_s, dev0), st.cost, st.it)
+
+
+def ba_solve_multi_mixed(
+    project_fn,
+    theta0,
+    ext0,
+    poses0,
+    p3d,
+    p2d,
+    w,
+    lo,
+    hi,
+    free,
+    cam_frame_valid,
+    frame_valid,
+    one_focal: bool = False,
+    max_iters: int = 60,
+    huber_delta: float = 1.0,
+    polish_iters: int = 10,
+    polish_jac_f32: bool = False,
+) -> MultiBAResult:
+    """Two-stage mixed-precision joint BA (``ba_solve_multi``'s arguments):
+    stage 1 runs the bulk of the descent in float32 (loose ``rtol=1e-6``
+    stop, the float32 cost plateau), stage 2 polishes from the float32
+    state in the caller's dtype for at most ``polish_iters`` iterations.
+
+    Unlike the single-camera ``ba_solve_mixed``, the polish keeps
+    full-precision JACOBIANS by default: the joint reduced system of a
+    many-camera rig is ill-conditioned enough that float32 Jacobian error
+    can poison the step.  ``CCRS_POLISH_JAC32=1`` forces float32 polish
+    Jacobians for experiments, ``=0`` forces them off.
+    """
+    polish_jac_f32 = _polish_jac_f32(polish_jac_f32)
+    s1 = ba_solve_multi(
+        project_fn,
+        *_as(torch.float32, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
+             cam_frame_valid, frame_valid),
+        one_focal=one_focal, max_iters=max_iters, huber_delta=huber_delta, rtol=1e-6,
+    )
+    dt = theta0.dtype
+    s2 = ba_solve_multi(
+        project_fn, s1.theta.to(dt), s1.ext.to(dt), s1.poses.to(dt),
+        p3d, p2d, w, lo, hi, free, cam_frame_valid, frame_valid,
+        one_focal=one_focal, max_iters=polish_iters, huber_delta=huber_delta,
+        rtol=polish_rtol(), jac_f32=polish_jac_f32,
+    )
+    return MultiBAResult(s2.theta, s2.ext, s2.poses, s2.cost,
+                         s1.n_iters + s2.n_iters, s2.n_iters)

@@ -57,11 +57,14 @@ def _eye3(like):
 
 def exp_so3(rvec):
     """Axis-angle (...,3) -> rotation matrix (...,3,3) via Rodrigues."""
-    theta2 = torch.sum(rvec * rvec, dim=-1)
+    # per-rotation scalars keep a trailing axis of 1 here and in log_so3:
+    # forward-mode AD gives a 0-dim float32 tensor times a Python float a
+    # float64 tangent, which the matmuls downstream refuse
+    theta2 = torch.sum(rvec * rvec, dim=-1, keepdim=True)
     a, b, _ = _sinc_terms(theta2)
     K = hat(rvec)
     KK = K @ K
-    return _eye3(K) + a[..., None, None] * K + b[..., None, None] * KK
+    return _eye3(K) + a[..., None] * K + b[..., None] * KK
 
 
 def log_so3(R):
@@ -70,7 +73,7 @@ def log_so3(R):
     Smooth away from theta = pi; near pi uses the symmetric-part branch
     (nalgebra ``scaled_axis`` semantics, reference factors.rs:262).
     """
-    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    trace = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2])[..., None]  # (..., 1)
     cos_t = torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0)
     # arccos has infinite slope at +-1: clip its domain so jacfwd stays
     # finite at an exact identity, while the branch selection below keeps
@@ -90,10 +93,10 @@ def log_so3(R):
     near_pi = torch.pi - theta < 1e-6
     # generic branch: theta / (2 sin theta) * w
     safe_sin = torch.where(small | near_pi, torch.ones_like(sin_t), sin_t)
-    generic = w * (theta / (2.0 * safe_sin))[..., None]
+    generic = w * (theta / (2.0 * safe_sin))
     # small: w/2 * (1 + theta^2/6), with theta^2 ~ 2(1-cos) (smooth in R)
     th2 = 2.0 * torch.clamp(1.0 - cos_t, min=0.0)
-    small_branch = 0.5 * w * (1.0 + th2 / 6.0)[..., None]
+    small_branch = 0.5 * w * (1.0 + th2 / 6.0)
     # near pi: axis from diagonal of (R + I)/2
     A = (R + _eye3(R)) / 2.0
     diag = torch.stack([A[..., 0, 0], A[..., 1, 1], A[..., 2, 2]], -1)
@@ -121,10 +124,10 @@ def log_so3(R):
     axis = axis_abs * torch.stack([sx, sy, sz], -1)
     norm = torch.linalg.norm(axis, dim=-1, keepdim=True)
     axis = axis / torch.where(norm > 0, norm, torch.ones_like(norm))
-    pi_branch = axis * theta[..., None]
+    pi_branch = axis * theta
     return torch.where(
-        small[..., None], small_branch,
-        torch.where(near_pi[..., None], pi_branch, generic),
+        small, small_branch,
+        torch.where(near_pi, pi_branch, generic),
     )
 
 

@@ -405,6 +405,104 @@ def default_rig_extrinsics(cam_num: int):
     return np.stack(out)
 
 
+def _rig_camera_points(ext, poses, p3d):
+    """Board points in each camera's frame: ext (C, 6) T_cam_i<-cam0, poses
+    (F, 6) board->cam0, p3d (N, 3) -> (C, F, N, 3)."""
+    C, F = ext.shape[0], poses.shape[0]
+    e = ext[:, None, :].expand(C, F, 6)
+    po = poses[None].expand(C, F, 6)
+    rv, tv = se3.compose(e[..., :3], e[..., 3:], po[..., :3], po[..., 3:])
+    return se3.transform(rv, tv, p3d)
+
+
+def rig_problem(n_cams: int = 8, n_frames: int = 1000, vis_frac: float = 0.75,
+                seed: int = 0, noise_px: float = 0.1, device="cuda") -> dict:
+    """The synthetic joint-BA problem of ``bench_multicam.py``: ``n_cams``
+    EUCM cameras (tumvi-like, each perturbed by 1%) on the horizontal rig
+    of ``default_rig_extrinsics`` see the default 6x6 board in
+    ``n_frames`` poses; cameras past the first see a frame with
+    probability ``vis_frac``; observations carry ``noise_px`` Gaussian
+    noise per axis, and a camera's frame counts with at least 24 corners
+    inside the 512x512 image.  The random draws are numpy's from ``seed``;
+    the geometry runs on ``device`` through ``se3`` and ``project_eucm``.
+
+    Returns a dict: ``args``, the float64 tensors of ``ba_solve_multi``
+    after ``project_fn`` (theta0, ext0 and poses0 perturbed as a
+    per-camera calibration would hand them over), and the ground truth
+    ``gt_params`` (C, 6), ``rig`` (C, 6) as numpy arrays."""
+    from .board import create_default_6x6_board
+    from .models.projections import project_eucm
+
+    rng = np.random.default_rng(seed)
+    C, F = n_cams, n_frames
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=F64, device=device)
+
+    p3d = t(create_default_6x6_board().p3d)
+    N = p3d.shape[0]
+    gt_params = np.stack([
+        np.array([190.9, 190.87, 254.94, 256.86, 0.628, 1.046])
+        * (1 + 0.01 * rng.standard_normal(6) * [1, 1, 0.2, 0.2, 0.5, 0.5])
+        for _ in range(C)
+    ])
+    rig = default_rig_extrinsics(C)
+    perts = t(rng.normal(size=(F, 3)) * 0.25)
+    dists = t(rng.uniform(0.5, 1.1, F))
+
+    zeros = torch.zeros_like(perts)
+    rv, _ = se3.compose(perts, zeros, t(front_view_base()).expand(F, 3), zeros)
+    tv = torch.stack([zeros[:, 0], zeros[:, 0], dists], dim=1) - (
+        se3.exp_so3(rv) @ p3d.mean(0)
+    )
+    poses = torch.cat([rv, tv], dim=1)
+    pc = _rig_camera_points(t(rig), poses, p3d)
+    pr, valid = project_eucm(t(gt_params)[:, None, None, :], pc)
+    inside = (
+        valid & (pr[..., 0] >= 0) & (pr[..., 0] < 512)
+        & (pr[..., 1] >= 0) & (pr[..., 1] < 512)
+    )
+    pr = pr + t(rng.normal(size=(C, F, N, 2)) * noise_px)
+    p2d = torch.where(inside[..., None], pr, torch.zeros_like(pr))
+    sel = np.ones((C, F), bool)
+    sel[1:] = rng.uniform(size=(C - 1, F)) < vis_frac
+    sel = torch.as_tensor(sel, device=device)
+    w = inside & sel[:, :, None]
+    cam_frame_valid = (sel & (w.sum(2) >= 24)).to(F64)
+    frame_valid = (cam_frame_valid.sum(0) > 0).to(F64)
+
+    theta0 = gt_params * (1 + 0.01 * rng.standard_normal(gt_params.shape))
+    ext0 = np.concatenate([np.zeros((1, 6)), rig[1:] + rng.normal(size=(C - 1, 6)) * 5e-3])
+    poses0 = poses + t(rng.normal(size=(F, 6)) * 5e-3)
+    args = (
+        t(theta0), t(ext0), poses0, p3d, p2d, w.to(F64),
+        t(np.tile([0, 0, 0, 0, 1e-6, 1e-6], (C, 1))),
+        t(np.tile([1e4, 1e4, 512, 512, 1, 10], (C, 1))),
+        torch.ones((C, 6), dtype=F64, device=device), cam_frame_valid, frame_valid,
+    )
+    return {"args": args, "gt_params": gt_params, "rig": rig}
+
+
+def rig_errors(problem: dict, res) -> dict:
+    """A joint solution against ``rig_problem``'s ground truth, as
+    ``bench_multicam.py`` judges it: the largest focal error over 190 px,
+    the largest extrinsic component error, and the weighted reprojection
+    RMS per axis in px (0.1 px of injected noise puts it near 0.1)."""
+    from .models.projections import project_eucm
+
+    _, _, _, p3d, p2d, w = problem["args"][:6]
+    theta, ext = res.theta.cpu().numpy(), res.ext.cpu().numpy()
+    pc = _rig_camera_points(res.ext.to(p3d.device), res.poses.to(p3d.device), p3d)
+    pr, _ = project_eucm(res.theta.to(p3d.device)[:, None, None, :], pc)
+    r2 = ((pr - p2d) ** 2).sum(-1)
+    return {
+        "focal_rel_err": float(np.abs(theta[:, :2] - problem["gt_params"][:, :2]).max() / 190.0),
+        "ext_err": float(np.abs(ext[1:] - problem["rig"][1:]).max()),
+        "rms_px": float(torch.sqrt((r2 * w).sum() / (2.0 * w.sum()))),
+        "residuals": int(w.sum()) * 2,
+    }
+
+
 def _main(argv=None):
     import argparse
 

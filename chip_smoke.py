@@ -21,6 +21,27 @@ entry points a user calls, at the benchmark's sizes:
   every frame (the default ``--max-images 600`` truncates after
   detection), and the cold composition (``CCRS_TRACK=0 --no-speculate
   --step 4``, 160 frames per camera);
+- phase fresh: the user's real first run.  On the cli phase's dataset,
+  ``python -m ccrs_tpu_torch <ds> --model eucm --cam-num 2 --platform cuda
+  --no-rerun --seed 1`` as a SUBPROCESS, four times in turns with
+  ``CCRS_PREWARM=1``, ``0``, ``1``, ``0``: each run's wall time from
+  process start to exit, its "detecting feature took" line and stage
+  timers; gates: exit code 0 on the card, ``cam0.json``, ``cam1.json`` and
+  ``extrinsics.json`` byte for byte equal across the runs (warm-up changes
+  timing, never results), fx within 1%, medians below 0.3 px, no warm-up
+  or speculation error, the threshold kernel launched (by the run, and by
+  the warm-up where it is on).  No gate on time;
+- phase rig: ``bench_multicam.py``'s joint BA at its full size (8 cameras
+  x 1000 frames, 36 tags x 4 corners, 0.75 visibility, 0.1 px noise),
+  generated on the card (``testdata.rig_problem``), through
+  ``ba_solve_multi`` (float64) and ``ba_solve_multi_mixed`` in turns, twice
+  each, and ``multi_ba_sharded_mixed`` on the mesh; gates per solve: focal
+  < 3e-3, extrinsic < 3e-3, 0.07 < RMS < 0.13 px; mixed against float64
+  RMS within 1e-6 px; sharded mixed against mixed theta within 1e-8
+  relative; iterations (float32 stage + polish), seconds and peak device
+  memory printed.  Then the 512 phase's final single-camera problem
+  through ``ba_solve`` and ``ba_solve_mixed`` with float32 and float64
+  polish Jacobians: RMS within 1e-6 px of each other;
 - phase mesh: the multi-device layer on the mesh of every visible card
   (two shards of ``cuda:0`` when one is visible): the 512 phase's final
   EUCM problem through ``make_ba_solver`` against ``ba_solve`` (theta
@@ -80,8 +101,9 @@ Usage: ``python3 chip_smoke.py`` from the repository root (builds the CUDA
 kernel, the host quad extractor and the PNG unfilter routine into
 ``ccrs_tpu_torch/_build/``; the cli phase's dataset lives in a temporary
 directory that is removed at the end).
-Prints stage times, detector stats and gates per run, a JSON line of
-kernel results, then as its last line ``{"ok": true, "device": {...}}``.
+Prints stage times, detector stats and gates per run, a JSON line of the
+fresh and rig phases' numbers, a JSON line of kernel results, then as its
+last line ``{"ok": true, "device": {...}}``.
 Exits non-zero on any failed phase, and when no CUDA device is available.
 """
 
@@ -117,6 +139,10 @@ SPAN_CLI = 1.5
 N_MESH_DETECT = 128
 #: cli cam0 frames the colour phase writes as RGB and as gray PNGs
 N_COLOUR = 48
+#: CCRS_PREWARM of the fresh phase's subprocess runs, in this order
+FRESH_PREWARM = ("1", "0", "1", "0")
+#: bench_multicam.py's rig: cameras, frames per camera, visibility of cameras > 0
+RIG = dict(n_cams=8, n_frames=1000, vis_frac=0.75)
 #: frames per shape the ccl phase extracts on the card, and of those on the CPU
 N_CCL = {512: 64, 1024: 16}
 N_CCL_CPU = 8
@@ -621,7 +647,10 @@ def run_cli(tmp, name, ds, gt, rig, label, extra, env):
     cwd = os.getcwd()
     os.chdir(tmp)  # default_board_config.json goes to the cwd
     try:
-        with env_set(**env), observe_joint_solve(cli) as seen, \
+        # this process is warm by now, so the CLI's warm-up thread would only
+        # compete with the first chunk (and add its launch to the count):
+        # the fresh phase runs it where it belongs
+        with env_set(CCRS_PREWARM="0", **env), observe_joint_solve(cli) as seen, \
                 observe_specs(cli) as specs, observe_detector_stats(cli) as det_stats:
             # the CLI ends on host data (artifacts), so the card is idle
             # when it returns
@@ -757,11 +786,94 @@ def run_cli_phase(card):
             tmp, "out_cold", ds, gt, rig, f"[cli cold 2x{N_CLI // 4}x752x480] ({card})",
             ["--no-speculate", "--step", "4"], {"CCRS_TRACK": "0"},
         )[0]
+        fresh = run_fresh_phase(tmp, ds, gt, card)
         frames = []
         for c in range(2):
             paths = _list_images(os.path.join(ds, "mav0", f"cam{c}", "data", "*"), 0, 1)
             frames.append(np.stack([read_png(p) for p in paths]))
-    return frames, launches, joint
+    return frames, launches, joint, fresh
+
+
+def run_fresh_phase(tmp, ds, gt, card):
+    """The CLI as a user starts it: a new process per run, on the cli
+    phase's dataset, with the warm-up on and off in turns.  Returns one
+    record per run (wall seconds, the lines it printed about itself, its
+    threshold launches)."""
+    from ccrs_tpu_torch.models import model_from_json
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs, first = [], None
+    for i, prewarm in enumerate(FRESH_PREWARM):
+        tag = f"[fresh {i}, CCRS_PREWARM={prewarm}] ({card})"
+        out = os.path.join(tmp, f"fresh{i}")
+        env = dict(os.environ)
+        env.update(CCRS_PREWARM=prewarm, CCRS_TIMING="1",
+                   PYTHONPATH=root + os.pathsep + env.get("PYTHONPATH", ""))
+        env.pop("CCRS_TRACK", None)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ccrs_tpu_torch", ds, "--model", "eucm", "--cam-num", "2",
+             "--platform", "cuda", "--no-rerun", "--seed", "1", "-o", out],
+            capture_output=True, text=True, env=env, cwd=tmp, timeout=600,
+        )
+        wall = time.perf_counter() - t0
+        text = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tag} exited {proc.returncode}: {text[-3000:]}")
+        if "device: cuda" not in proc.stdout:
+            raise RuntimeError(f"{tag} did not run on the card: {proc.stdout[:300]}")
+        for word in ("prewarm error", "speculation error", "prewarm failed",
+                     "speculative calibration failed", "Traceback"):
+            if word in text:
+                raise RuntimeError(f"{tag} reported '{word}': {text[-3000:]}")
+        detect = re.search(r"detecting feature took ([0-9.]+) sec", proc.stdout)
+        warm = re.search(r"prewarm took ([0-9.]+) sec", proc.stdout)
+        count = re.search(r"threshold kernel launches: (\d+) \(prewarm (\d+)\)", proc.stdout)
+        if not (detect and count):
+            raise RuntimeError(f"{tag} printed no detection time or launch count")
+        total, by_warmup = int(count.group(1)), int(count.group(2))
+        if (warm is not None) != (prewarm == "1") or (by_warmup > 0) != (prewarm == "1"):
+            raise RuntimeError(f"{tag} warm-up ran {warm is not None} with {by_warmup} launches")
+        if total - by_warmup <= 0:
+            raise RuntimeError(f"{tag} the run never launched the threshold kernel")
+        stages = dict(
+            (m.group(1), float(m.group(2)))
+            for m in re.finditer(r"^  (\S+)\s+([0-9.]+)s  x\d+$", proc.stdout, re.M)
+        )
+        print(f"{tag} wall {wall:.3f} s from process start to exit; detecting feature took "
+              f"{float(detect.group(1)):.3f} s; prewarm "
+              f"{'took ' + warm.group(1) + ' s' if warm else 'off'}; threshold kernel launches "
+              f"{total} ({by_warmup} by the warm-up)")
+        for name in sorted(stages, key=lambda k: -stages[k]):
+            print(f"{tag}   {name:26s} {stages[name]:8.3f} s")
+
+        files = {}
+        for name in ("cam0.json", "cam1.json", "extrinsics.json"):
+            with open(os.path.join(out, name), "rb") as f:
+                files[name] = f.read()
+        if first is None:
+            first = files
+        for name, blob in files.items():
+            if blob != first[name]:
+                raise RuntimeError(f"{tag} {name} differs from run 0's: warm-up changed a result")
+        fx = [abs(model_from_json(os.path.join(out, f"cam{c}.json")).params[0] - gt.params[0])
+              / gt.params[0] for c in range(2)]
+        with open(os.path.join(out, "report.txt")) as f:
+            medians = [float(v) for v in
+                       re.findall(r"median  reprojection error: ([0-9.]+) px", f.read())]
+        print(f"{tag} focal err {[f'{e:.4%}' for e in fx]}, medians {medians} px; cam0.json, "
+              f"cam1.json, extrinsics.json equal run 0's byte for byte")
+        if not (max(fx) < 0.01 and len(medians) == 2 and max(medians) < 0.3):
+            raise RuntimeError(f"{tag} focal {fx} or medians {medians} off")
+        runs.append(dict(prewarm=prewarm, wall_s=wall, detect_s=float(detect.group(1)),
+                         prewarm_s=float(warm.group(1)) if warm else None,
+                         launches=total - by_warmup, launches_prewarm=by_warmup,
+                         stages=stages))
+    on = [r["wall_s"] for r in runs if r["prewarm"] == "1"]
+    off = [r["wall_s"] for r in runs if r["prewarm"] == "0"]
+    print(f"[fresh] ({card}) process wall, CCRS_PREWARM=1: {', '.join(f'{t:.3f}' for t in on)} s; "
+          f"CCRS_PREWARM=0: {', '.join(f'{t:.3f}' for t in off)} s (in turns; no gate on time)")
+    return runs
 
 
 def single_problem(board, batch, model, rtvecs, device):
@@ -792,6 +904,97 @@ def solved_model(model, res, frames):
     m.set_params(res.theta.cpu().numpy())
     poses = res.poses.cpu().numpy()
     return m, {f: RvecTvec(poses[f, :3], poses[f, 3:]) for f in frames}
+
+
+def run_rig_phase(card, run512, board):
+    """bench_multicam.py's joint BA at full size through the float64 and
+    the mixed-precision solver in turns and through the sharded mixed
+    solver, then the 512 phase's final problem through ``ba_solve`` and
+    ``ba_solve_mixed``.  Returns the numbers it printed."""
+    import torch
+
+    from ccrs_tpu_torch.models.projections import project_fn
+    from ccrs_tpu_torch.parallel import mesh as pmesh
+    from ccrs_tpu_torch.solve.lm import (
+        ba_solve,
+        ba_solve_mixed,
+        ba_solve_multi,
+        ba_solve_multi_mixed,
+    )
+    from ccrs_tpu_torch.testdata import rig_errors, rig_problem
+
+    proj = project_fn("eucm")
+    tag = f"[rig {RIG['n_cams']}x{RIG['n_frames']}] ({card})"
+    problem, t_gen = sync_time(torch, lambda: rig_problem(seed=0, device="cuda", **RIG))
+    args = problem["args"]
+    M = args[0].numel() + args[1].numel()
+
+    def solve(name, fn, **kw):
+        torch.cuda.reset_peak_memory_stats()
+        res, sec = sync_time(torch, lambda: fn(proj, *args, **kw))
+        err = rig_errors(problem, res)
+        rec = dict(solver=name, seconds=sec, iters=res.n_iters, polish_iters=res.n_polish,
+                   peak_mib=torch.cuda.max_memory_allocated() / 2**20, cost=float(res.cost),
+                   **err)
+        print(f"{tag} {name}: {sec:.3f} s, {res.n_iters} iterations ({res.n_iters - res.n_polish} "
+              f"+ {res.n_polish} polish), peak device memory {rec['peak_mib']:.0f} MiB; focal "
+              f"err {err['focal_rel_err']:.3e}, extrinsic err {err['ext_err']:.3e}, rms "
+              f"{err['rms_px']:.9f} px")
+        # bench_multicam.py:182-184
+        if not (err["focal_rel_err"] < 3e-3 and err["ext_err"] < 3e-3
+                and 0.07 < err["rms_px"] < 0.13):
+            raise RuntimeError(f"{tag} {name} missed the rig's gates: {err}")
+        return res, rec
+
+    print(f"{tag} generated on the card in {t_gen:.3f} s: {int(args[5].sum()) * 2} residuals, "
+          f"reduced system {M} x {M}")
+    solves = []
+    results = {}
+    for name, fn in (("float64", ba_solve_multi), ("mixed", ba_solve_multi_mixed),
+                     ("mixed", ba_solve_multi_mixed), ("float64", ba_solve_multi)):
+        results[name], rec = solve(name, fn)
+        solves.append(rec)
+    mesh = pmesh.make_mesh()
+    if len(mesh) == 1:
+        mesh = [mesh[0], mesh[0]]
+    sharded, rec = solve(f"mixed, {len(mesh)} shards", pmesh.multi_ba_sharded_mixed, mesh=mesh)
+    solves.append(rec)
+    by = {r["solver"]: r for r in solves}  # the later run of each
+    d_rms = abs(by["mixed"]["rms_px"] - by["float64"]["rms_px"])
+    rel = float(((sharded.theta - results["mixed"].theta).abs()
+                 / results["mixed"].theta.abs()).max())
+    print(f"{tag} |rms_mixed - rms_float64| = {d_rms:.3e} px; sharded mixed against mixed: theta "
+          f"max rel diff {rel:.3e}")
+    if not (d_rms < 1e-6):
+        raise RuntimeError(f"{tag} the mixed solve left the float64 optimum by {d_rms:.3e} px")
+    if not (rel < 1e-8):
+        raise RuntimeError(f"{tag} the sharded mixed solve left the mixed one by {rel:.3e}")
+
+    # the 512 phase's final single-camera problem
+    batch, model, rtvecs = run512["batch"], run512["model"], run512["rtvecs"]
+    sargs = single_problem(board, batch, model, rtvecs, "cuda")
+    tag1 = f"[rig, 512 problem {batch.p2d.shape[0]} frames] ({card})"
+    single = []
+    for name, fn, kw in (
+        ("ba_solve float64", ba_solve, {}),
+        ("ba_solve_mixed, float32 polish J", ba_solve_mixed, {}),
+        ("ba_solve_mixed, float64 polish J", ba_solve_mixed, dict(polish_jac_f32=False)),
+        ("ba_solve_mixed, float32 polish J", ba_solve_mixed, {}),
+        ("ba_solve float64", ba_solve, {}),
+    ):
+        res, sec = sync_time(torch, lambda: fn(proj, *sargs, **kw))
+        rms = rms_of(board, batch, *solved_model(model, res, rtvecs))
+        single.append(dict(solver=name, seconds=sec, iters=res.n_iters,
+                           polish_iters=res.n_polish, rms_px=rms))
+        print(f"{tag1} {name}: {sec:.3f} s, {res.n_iters} iterations ({res.n_polish} polish), "
+              f"rms {rms:.9f} px")
+    spread = max(r["rms_px"] for r in single) - min(r["rms_px"] for r in single)
+    print(f"{tag1} rms spread over the three solvers {spread:.3e} px")
+    if not (spread < 1e-6):
+        raise RuntimeError(f"{tag1} the solvers' optima differ by {spread:.3e} px")
+    return dict(problem=dict(RIG, residuals=solves[0]["residuals"], reduced_dim=M),
+                solves=solves, rms_mixed_minus_f64=d_rms, sharded_theta_rel=rel,
+                single_512=single, single_512_rms_spread=spread)
 
 
 @contextlib.contextmanager
@@ -1209,11 +1412,16 @@ def main() -> int:
     k1024 = check_kernel(frames, scale, card, f"{N_1024}x1024x1024")
     ccl.append(run_ccl_phase(card, frames[: N_CCL[1024]].contiguous(), scale, "1024 phase"))
     del frames
-    cli_frames, launches_cli, joint = run_cli_phase(card)
+    cli_frames, launches_cli, joint, fresh = run_cli_phase(card)
     if launches_cli <= 0:
         raise RuntimeError("the CLI run never launched the threshold kernel")
+    launches_fresh = sum(r["launches"] for r in fresh)
+    launches_prewarm = sum(r["launches_prewarm"] for r in fresh)
+    if launches_fresh <= 0 or launches_prewarm <= 0:
+        raise RuntimeError("the fresh-process CLI runs never launched the threshold kernel")
     from ccrs_tpu_torch.board import create_default_6x6_board
 
+    rig = run_rig_phase(card, run512, create_default_6x6_board())
     launches_mesh = run_mesh_phase(card, frames512, run512, create_default_6x6_board(), joint)
     del frames512
     run_undistort_phase(card, cli_frames[0][0])
@@ -1226,17 +1434,24 @@ def main() -> int:
     shapes = [k512, k1024, kcli]
 
     print(json.dumps({"ccl": ccl, "card": card}))
+    print(json.dumps({"fresh": fresh, "rig": rig, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "threshold_front",
         "route": "cuda",
         "source": "ccrs_tpu_torch/csrc/threshold.cu",
         "replaces": "ccrs_tpu/ops/threshold_pallas.py:35",
-        "launches": launches512 + launches1024 + launches_cli + launches_mesh + launches_colour,
+        "launches": (launches512 + launches1024 + launches_cli + launches_mesh
+                     + launches_colour + launches_fresh),
         "launches_512": launches512,
         "launches_1024": launches1024,
         "launches_cli": launches_cli,
         "launches_mesh": launches_mesh,
         "launches_colour": launches_colour,
+        # the subprocess CLI runs' own launches, and their warm-up threads'
+        # (each child prints its library's count and, of that, what the
+        # wrapper counted on the warm-up thread)
+        "launches_fresh": launches_fresh,
+        "launches_prewarm": launches_prewarm,
         "max_abs_err": max(k["max_abs_err"] for k in shapes),
         "ms": k512["ms"],
         "plain_ms": k512["plain_ms"],

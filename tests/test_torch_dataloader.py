@@ -265,7 +265,7 @@ def test_colour_dataset_matches_reference(colour_dataset, track):
     np.testing.assert_array_equal(port.mask, ref.mask)
     m = ref.mask
     assert m.sum() > 100 * N_COLOUR * 0.8
-    if "16" in colour_dataset:
+    if "rgb16" in os.path.basename(colour_dataset):  # the layout, not the tmp path
         err = np.abs(port.p2d[m] - ref.p2d[m]).max(axis=-1)
         assert np.quantile(err, 0.99) < 1e-3 and err.max() < 5e-2
     else:
@@ -291,7 +291,7 @@ def test_colour_chunk_stays_uint8(colour_dataset):
     imgs = [dl._imread(os.path.join(d, n)) for n in sorted(os.listdir(d))[:2]]
     up = dl._upload(imgs, torch.device("cpu"))
     assert up.shape == (2, 512, 512)
-    if "16" in colour_dataset:
+    if "rgb16" in os.path.basename(colour_dataset):  # the layout, not the tmp path
         assert imgs[0].dtype == np.uint16 and up.dtype == torch.float32
         assert float(up.max()) <= 255.0
     else:

@@ -23,7 +23,7 @@ names = ["ccrs_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 for name in ("parallel.mesh", "models.undistort", "examples.convert_model", "examples.test_pnp",
-             "make_board", "detect.ccl"):
+             "make_board", "detect.ccl", "calib.prewarm"):
     assert "ccrs_tpu_torch." + name in names, name
 import contextlib, io, runpy
 for entry in ("ccrs_tpu_torch", "ccrs_tpu_torch.testdata", "ccrs_tpu_torch.make_board"):
