@@ -3,9 +3,9 @@
 Copy of ``ccrs_tpu/detect/families.py`` (numpy only), the replacement for
 the `aprilgrid` crate's `TagFamily` (reference call sites:
 src/bin/camera_calibration.rs:31-33, src/data_loader.rs:43).  The code
-tables are read by file path from the JAX package's
-``ccrs_tpu/detect/data/tag_families.npz``; the port never imports
-``ccrs_tpu``, whose package import pulls in the JAX framework.
+tables come from the port's own copy of the JAX package's data file,
+``ccrs_tpu_torch/detect/data/tag_families.npz`` (equal byte for byte; a
+test holds them equal).
 
 Layout conventions:
 - ``bits``: data grid is ``size x size`` cells (4/5/6).
@@ -27,10 +27,7 @@ from functools import cached_property, lru_cache
 
 import numpy as np
 
-_DATA = os.path.join(
-    os.path.dirname(__file__), "..", "..", "ccrs_tpu", "detect", "data",
-    "tag_families.npz",
-)
+_DATA = os.path.join(os.path.dirname(__file__), "data", "tag_families.npz")
 
 #: maximum hamming-distance correction per family (family "hN" = min dist N;
 #: correct up to floor((N-1)/2) but stay conservative like apriltag defaults)

@@ -1,10 +1,10 @@
 """ctypes bridge to the native quad extractor.
 
 The irregular stage of the detector (connected components, contours, quad
-fit) stays host C++: ``ccrs_tpu/native/quadproc.cpp``, compiled with the
-JAX package's g++ flags into the port's own ``ccrs_tpu_torch/_build/`` at
-first use.  Nothing is written under ``ccrs_tpu/``.  The library's two
-host corner refinements (``refine_corners_native``,
+fit) stays host C++: ``csrc/quadproc.cpp``, the port's copy of the JAX
+package's source (equal byte for byte; a test holds them equal), compiled
+with the same g++ flags into ``ccrs_tpu_torch/_build/`` at first use.  The
+library's two host corner refinements (``refine_corners_native``,
 ``refine_corners_patches_native``) are bound too; the detector refines on
 the device and does not call them.
 """
@@ -20,8 +20,7 @@ import numpy as np
 from ..native_build import BUILD_DIR, ensure_built
 
 _SRC = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "..", "..", "ccrs_tpu",
-    "native", "quadproc.cpp",
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "quadproc.cpp"
 )
 _SO = os.path.join(BUILD_DIR, "libquadproc.so")
 

@@ -1,7 +1,7 @@
 """Build-at-first-use for the port's native libraries.
 
 Both shared libraries — the CUDA kernels (``csrc/*.cu``, by nvcc) and the
-host quad extractor (``ccrs_tpu/native/quadproc.cpp``, by g++) — are
+host quad extractor (``csrc/quadproc.cpp``, by g++) — are
 compiled into ``ccrs_tpu_torch/_build/`` the first time they are needed and
 rebuilt when a source is newer than the library.  A failed build raises
 with the compiler's stderr.

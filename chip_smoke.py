@@ -34,8 +34,8 @@ entry points a user calls, at the benchmark's sizes:
 - phase rig: ``bench_multicam.py``'s joint BA at its full size (8 cameras
   x 1000 frames, 36 tags x 4 corners, 0.75 visibility, 0.1 px noise),
   generated on the card (``testdata.rig_problem``), through
-  ``ba_solve_multi`` (float64) and ``ba_solve_multi_mixed`` in turns, twice
-  each, and ``multi_ba_sharded_mixed`` on the mesh; gates per solve: focal
+  ``ba_solve_multi`` (float64) and ``ba_solve_multi_mixed``, once each, and
+  ``multi_ba_sharded_mixed`` on the mesh; gates per solve: focal
   < 3e-3, extrinsic < 3e-3, 0.07 < RMS < 0.13 px; mixed against float64
   RMS within 1e-6 px; sharded mixed against mixed theta within 1e-8
   relative; iterations (float32 stage + polish), seconds and peak device
@@ -69,7 +69,13 @@ entry points a user calls, at the benchmark's sizes:
   the peak device memory;
 - phase tools: ``python -m ccrs_tpu_torch.make_board`` as a subprocess (its
   PNG read back at the size it printed) and one host-rendered
-  ``render_board_image`` frame detected on the card (>= 30 tags).
+  ``render_board_image`` frame detected on the card (>= 30 tags);
+- phase bench: the port's two timing programs, each in a fresh process at
+  full size, as a benchmark runs them: ``bench_torch.py`` (534 frames at
+  512x512 and 128 at 1024x1024, with its host-image, CLI and CPU float64
+  paths and gates) and ``bench_multicam_torch.py`` (8 cameras x 1000
+  frames); each must exit 0 and end with one JSON line, which is printed,
+  and ``bench_torch.py`` must report threshold kernel launches.
 
 Phases 512 and 1024 run ``TagDetector("t36h11", device="cuda")``
 (tracking on) with a ``SpeculativeCalib`` on its provisional hook ->
@@ -91,19 +97,22 @@ result at the same RMS within 1e-6 px, and no speculation error.  In
 every phase the threshold kernel is held bit for bit against its plain
 torch version on every frame (for cli: every decoded frame of both
 cameras) and both are timed over the whole sequence in the detector's
-chunks of 64: the kernel by CUDA events around the loop of wrapper calls
-and by its device time under torch.profiler (one launch per call, as the
-library counts them, or the run fails), beside the bytes it must move and the bound they give at the
-card's published 3.35 TB/s; every main-path run (and each CLI run) must
-launch it.  The build prints the kernel's ``ptxas -v`` summary.
+chunks of 64: the kernel by CUDA events around the loop of wrapper calls,
+its device time by CUDA events around back-to-back launches (queued behind
+a sleep kernel) and under torch.profiler (one launch per call, as the
+library counts them, or the run fails), beside the bytes it must move and
+the bound they give at the card's published 3.35 TB/s; every main-path
+run (and each CLI run) must launch it.  The build prints the kernel's
+``ptxas -v`` summary.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (builds the CUDA
 kernel, the host quad extractor and the PNG unfilter routine into
 ``ccrs_tpu_torch/_build/``; the cli phase's dataset lives in a temporary
 directory that is removed at the end).
 Prints stage times, detector stats and gates per run, a JSON line of the
-fresh and rig phases' numbers, a JSON line of kernel results, then as its
-last line ``{"ok": true, "device": {...}}``.
+fresh and rig phases' numbers, one of the bench phase's two result lines,
+a JSON line of kernel results, then as its last line ``{"ok": true,
+"device": {...}}``.
 Exits non-zero on any failed phase, and when no CUDA device is available.
 """
 
@@ -127,6 +136,9 @@ CALIB_SEED = 1
 TIMING_REPS = 10
 #: passes over the sequence under torch.profiler for the kernel's device time
 PROFILE_REPS = 3
+#: cycles of the sleep kernel that holds the stream while the host queues
+#: the launches timed back to back (about 0.1 s at the H100's clocks)
+QUEUE_SLEEP_CYCLES = 200_000_000
 #: published device-memory rate of the H100 SXM (HBM3), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 N_CLI = 640
@@ -143,6 +155,9 @@ N_COLOUR = 48
 FRESH_PREWARM = ("1", "0", "1", "0")
 #: bench_multicam.py's rig: cameras, frames per camera, visibility of cameras > 0
 RIG = dict(n_cams=8, n_frames=1000, vis_frac=0.75)
+#: the bench phase's programs (each in a fresh process, at full size) and
+#: the seconds each may take
+BENCH_PROGRAMS = (("bench_torch.py", 600), ("bench_multicam_torch.py", 300))
 #: frames per shape the ccl phase extracts on the card, and of those on the CPU
 N_CCL = {512: 64, 1024: 16}
 N_CCL_CPU = 8
@@ -484,11 +499,42 @@ def kernel_device_ms(torch, parts, scale):
     return mean_us * len(parts) / 1e3, len(events) / PROFILE_REPS
 
 
+def kernel_events_ms(torch, parts, scale):
+    """The threshold kernel's device time per pass over ``parts``, by CUDA
+    events around TIMING_REPS passes of back-to-back launches: a sleep
+    kernel holds the stream while the host queues every launch, so the
+    card runs them one after the other and the events see no host gap
+    (fails if the sleep ended before the host finished queuing)."""
+    from ccrs_tpu_torch.ops.threshold_cuda import kernel_launches, threshold_front_cuda
+
+    for p in parts:  # warm
+        threshold_front_cuda(p, scale)
+    torch.cuda.synchronize()
+    launched = kernel_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(TIMING_REPS):
+        for p in parts:
+            threshold_front_cuda(p, scale)
+    end.record()
+    queued_in_time = not start.query()
+    torch.cuda.synchronize()
+    calls = TIMING_REPS * len(parts)
+    if kernel_launches() - launched != calls:
+        raise RuntimeError(f"{kernel_launches() - launched} kernel launches for {calls} calls")
+    if not queued_in_time:
+        raise RuntimeError("the sleep kernel ended before the launches were queued")
+    return start.elapsed_time(end) / TIMING_REPS
+
+
 def check_kernel(frames, scale, card, label):
     """Kernel against its plain version on every frame, bit for bit; the
     time of both over the whole sequence in main-path chunks (CUDA events
     around the loop of calls, wrapper included), the kernel's device time
-    (torch.profiler), and the bytes it must move with the bound they give."""
+    (CUDA events around back-to-back launches; torch.profiler's beside it),
+    and the bytes it must move with the bound they give."""
     import torch
 
     from ccrs_tpu_torch.detect.detector import CHUNK
@@ -515,28 +561,34 @@ def check_kernel(frames, scale, card, label):
     parts = [frames[lo : lo + CHUNK].contiguous() for lo in range(0, B, CHUNK)]
     ms = time_ms(torch, lambda: [threshold_front_cuda(p, scale) for p in parts])
     plain_ms = time_ms(torch, lambda: [threshold_front_plain(p, scale) for p in parts])
-    device_ms, per_pass = kernel_device_ms(torch, parts, scale)
+    device_ms = kernel_events_ms(torch, parts, scale)
+    profiler_ms, per_pass = kernel_device_ms(torch, parts, scale)
     in_bytes = frames.numel() * frames.element_size()
     n_bytes = in_bytes + out_bytes
     bound_us = n_bytes / HBM_BYTES_PER_S * 1e6
-    share = bound_us / (device_ms * 1e3) if device_ms else None
+    share = bound_us / (device_ms * 1e3)
     print(
         f"{tag} threshold over {B}x{H}x{W} {frames.dtype} (scale {scale}) in {len(parts)} "
         f"chunks of {CHUNK}: kernel {ms:.4f} ms (CUDA events around the calls), "
         f"plain torch {plain_ms:.4f} ms"
     )
-    if device_ms is None:
-        print(f"{tag} kernel device time not measured: the profiler showed no kernel")
+    print(
+        f"{tag} kernel device time {device_ms * 1e3:.3f} us per pass (CUDA events around "
+        f"{TIMING_REPS} passes of back-to-back launches, {len(parts)} per pass); bytes "
+        f"{n_bytes} (in {in_bytes}, out {out_bytes}), bound {bound_us:.3f} us at 3.35 TB/s, "
+        f"{share:.1%} of the bound"
+    )
+    if profiler_ms is None:
+        print(f"{tag} torch.profiler device time not measured: it showed no kernel")
     else:
         print(
-            f"{tag} kernel device time {device_ms * 1e3:.3f} us per pass (torch.profiler: mean "
-            f"of the {per_pass:g} kernels it saw per pass x {len(parts)} calls, one launch "
-            f"each); bytes {n_bytes} (in {in_bytes}, out {out_bytes}), bound "
-            f"{bound_us:.3f} us at 3.35 TB/s, {share:.1%} of the bound"
+            f"{tag} torch.profiler device time {profiler_ms * 1e3:.3f} us per pass (mean of "
+            f"the {per_pass:g} kernels it saw per pass x {len(parts)} calls)"
         )
     return dict(shape=f"{label} {frames.dtype}, scale {scale}, chunks of {CHUNK}",
                 frames=B, bytes=n_bytes, bound_us=bound_us, device_ms=device_ms,
-                bound_share=share, ms=ms, plain_ms=plain_ms, max_abs_err=max_err)
+                profiler_ms=profiler_ms, bound_share=share, ms=ms, plain_ms=plain_ms,
+                max_abs_err=max_err)
 
 
 def ptxas_summary():
@@ -908,8 +960,8 @@ def solved_model(model, res, frames):
 
 def run_rig_phase(card, run512, board):
     """bench_multicam.py's joint BA at full size through the float64 and
-    the mixed-precision solver in turns and through the sharded mixed
-    solver, then the 512 phase's final problem through ``ba_solve`` and
+    the mixed-precision solver and through the sharded mixed solver, then
+    the 512 phase's final problem through ``ba_solve`` and
     ``ba_solve_mixed``.  Returns the numbers it printed."""
     import torch
 
@@ -950,8 +1002,9 @@ def run_rig_phase(card, run512, board):
           f"reduced system {M} x {M}")
     solves = []
     results = {}
-    for name, fn in (("float64", ba_solve_multi), ("mixed", ba_solve_multi_mixed),
-                     ("mixed", ba_solve_multi_mixed), ("float64", ba_solve_multi)):
+    # one solve each: the bench phase times the mixed route alone in a
+    # fresh process (bench_multicam_torch.py)
+    for name, fn in (("float64", ba_solve_multi), ("mixed", ba_solve_multi_mixed)):
         results[name], rec = solve(name, fn)
         solves.append(rec)
     mesh = pmesh.make_mesh()
@@ -959,7 +1012,7 @@ def run_rig_phase(card, run512, board):
         mesh = [mesh[0], mesh[0]]
     sharded, rec = solve(f"mixed, {len(mesh)} shards", pmesh.multi_ba_sharded_mixed, mesh=mesh)
     solves.append(rec)
-    by = {r["solver"]: r for r in solves}  # the later run of each
+    by = {r["solver"]: r for r in solves}
     d_rms = abs(by["mixed"]["rms_px"] - by["float64"]["rms_px"])
     rel = float(((sharded.theta - results["mixed"].theta).abs()
                  / results["mixed"].theta.abs()).max())
@@ -1366,6 +1419,44 @@ def run_tools_phase(card):
         raise RuntimeError(f"{tag} the host-rendered frame gave {len(tags)} tags (< 30)")
 
 
+def run_bench_phase(card):
+    """The port's two timing programs, each as a user starts it: a fresh
+    process at full size (``bench_torch.py``: 534 frames at 512x512 and 128
+    at 1024x1024; ``bench_multicam_torch.py``: 8 cameras x 1000 frames).
+    Each must exit 0 and end with one JSON line, which is returned;
+    ``bench_torch.py`` must report threshold kernel launches.  Returns
+    ({program: its JSON line}, bench_torch.py's launches)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    for knob in [k for k in env if k.startswith("BENCH_")] + ["CCRS_TRACK", "CCRS_PREWARM"]:
+        env.pop(knob, None)
+    lines, launches = {}, None
+    for program, limit in BENCH_PROGRAMS:
+        tag = f"[bench {program}] ({card})"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(root, program)],
+                              capture_output=True, text=True, env=env, cwd=root,
+                              timeout=limit)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tag} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        # its progress lines: runs, stages, gates (not the CLI's own output)
+        for line in proc.stderr.splitlines():
+            if line.startswith(("[", "  stage", "  warmup stage", "  detector stats",
+                                "threshold kernel", "iters=", "sharding")):
+                print(f"{tag} {line}")
+        out = proc.stdout.strip().splitlines()
+        lines[program] = json.loads(out[-1])
+        print(f"{tag} wall {wall:.3f} s from process start to exit; last line: {out[-1]}")
+        m = re.search(r"threshold kernel launches over the run: (\d+)", proc.stderr)
+        if program == "bench_torch.py":
+            if not m or int(m.group(1)) <= 0:
+                raise RuntimeError(f"{tag} reported no threshold kernel launches")
+            launches = int(m.group(1))
+    return lines, launches
+
+
 def main() -> int:
     import torch
 
@@ -1427,6 +1518,7 @@ def main() -> int:
     run_undistort_phase(card, cli_frames[0][0])
     launches_colour = run_colour_phase(card, cli_frames[0][:N_COLOUR])
     run_tools_phase(card)
+    bench, launches_bench = run_bench_phase(card)
     # every decoded frame of both cameras, as one sequence of 2 x 640 frames
     kcli = check_kernel(torch.as_tensor(np.concatenate(cli_frames)).cuda(), 1, card,
                         f"2 cameras x {N_CLI}x480x752")
@@ -1435,13 +1527,14 @@ def main() -> int:
 
     print(json.dumps({"ccl": ccl, "card": card}))
     print(json.dumps({"fresh": fresh, "rig": rig, "card": card}))
+    print(json.dumps({"bench": bench, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "threshold_front",
         "route": "cuda",
         "source": "ccrs_tpu_torch/csrc/threshold.cu",
         "replaces": "ccrs_tpu/ops/threshold_pallas.py:35",
         "launches": (launches512 + launches1024 + launches_cli + launches_mesh
-                     + launches_colour + launches_fresh),
+                     + launches_colour + launches_fresh + launches_bench),
         "launches_512": launches512,
         "launches_1024": launches1024,
         "launches_cli": launches_cli,
@@ -1452,6 +1545,8 @@ def main() -> int:
         # wrapper counted on the warm-up thread)
         "launches_fresh": launches_fresh,
         "launches_prewarm": launches_prewarm,
+        # bench_torch.py's run in its own process (the library's count)
+        "launches_bench": launches_bench,
         "max_abs_err": max(k["max_abs_err"] for k in shapes),
         "ms": k512["ms"],
         "plain_ms": k512["plain_ms"],

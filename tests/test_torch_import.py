@@ -58,8 +58,10 @@ def test_port_imports_without_jax():
 
 
 def test_no_jax_import_in_port_sources():
-    """No source of the port or of chip_smoke.py names jax."""
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    """No source of the port, of chip_smoke.py or of the port's two bench
+    programs names jax."""
+    paths = [os.path.join(REPO, p) for p in
+             ("chip_smoke.py", "bench_torch.py", "bench_multicam_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "ccrs_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for p in paths:
