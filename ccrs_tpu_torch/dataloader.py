@@ -50,8 +50,9 @@ from .utils.profiling import stage
 
 log = logging.getLogger(__name__)
 
-#: frames per upload/detect chunk (the JAX package's default)
-DETECT_BATCH = 192
+#: frames per upload/detect chunk; ``CCRS_DETECT_BATCH`` overrides the JAX
+#: package's default of 192, read at import as there
+DETECT_BATCH = int(os.environ.get("CCRS_DETECT_BATCH", "192"))
 _EXTS = (".png", ".jpg")
 
 

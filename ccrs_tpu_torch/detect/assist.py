@@ -178,11 +178,10 @@ def assist_merge(
     results: List[Dict[int, np.ndarray]],
 ) -> int:
     """Host half 2: accept decoded candidates whose id matches the
-    prediction (within the relaxed hamming budget); augments ``results``
-    in place and returns the number of recovered tags."""
-    tag_id = out["tag_id"].cpu().numpy()
-    hamming = out["hamming"].cpu().numpy()
-    corners = out["corners"].cpu().numpy()
+    prediction (within the relaxed hamming budget); ``out`` holds the host
+    copies (numpy) of the decode's tag_id, hamming and corners.  Augments
+    ``results`` in place and returns the number of recovered tags."""
+    tag_id, hamming, corners = out["tag_id"], out["hamming"], out["corners"]
 
     recovered = 0
     budget = family.max_hamming + ASSIST_EXTRA_HAMMING
@@ -222,4 +221,5 @@ def recover_missing_tags(
         family, images, torch.as_tensor(quads, device=images.device),
         torch.as_tensor(valid, device=images.device), do_refine=do_refine,
     )
-    return assist_merge(family, exp_id, out, results)
+    host = {k: out[k].cpu().numpy() for k in ("tag_id", "hamming", "corners")}
+    return assist_merge(family, exp_id, host, results)

@@ -106,6 +106,22 @@ def _sample_grids(family: TagFamily):
     )
 
 
+@lru_cache(maxsize=None)
+def _dense_constants(family: TagFamily, device: torch.device):
+    """The dense decode's constant tensors on ``device``: the unit-square
+    sample positions (data, black, white), the rotated codes as float32
+    and the Kalibr corner permutation.  Made once per device, so that a
+    decode queued on the card uploads nothing from pageable memory (such
+    an upload waits for the whole stream)."""
+    data_uv, black_uv, white_uv = _sample_grids(family)
+    all_uv = torch.as_tensor(
+        np.concatenate([data_uv, black_uv, white_uv], axis=0), device=device
+    )
+    codes = torch.as_tensor(family.rotated_codes, dtype=torch.float32, device=device)
+    perm = torch.tensor(_KALIBR_PERM, dtype=torch.int64, device=device)
+    return all_uv, codes, perm
+
+
 def _decode_core_dense(family: TagFamily, sharp, quads, qvalid):
     """Per-image dense decode: quads (B, M, 4, 2) float32, qvalid (B, M)
     bool, ``sharp`` the unsharp-masked float32 frames (B, H, W).
@@ -115,15 +131,9 @@ def _decode_core_dense(family: TagFamily, sharp, quads, qvalid):
     (corner 0 = board corner id tag*4+0)."""
     from .sample import sample_bilinear_mm
 
-    dev = quads.device
-    data_uv, black_uv, white_uv = _sample_grids(family)
+    data_uv, black_uv, _ = _sample_grids(family)
     n_data, n_black = data_uv.shape[0], black_uv.shape[0]
-    all_uv = torch.as_tensor(
-        np.concatenate([data_uv, black_uv, white_uv], axis=0), device=dev
-    )
-    codes = torch.as_tensor(
-        family.rotated_codes, dtype=torch.float32, device=dev
-    )
+    all_uv, codes, perm = _dense_constants(family, quads.device)
     nbits = codes.shape[1]
     B, M = quads.shape[:2]
     S = all_uv.shape[0]
@@ -149,7 +159,6 @@ def _decode_core_dense(family: TagFamily, sharp, quads, qvalid):
     tag_id = best // 4
     rotation = best % 4
     valid = qvalid & contrast_ok & (hamming <= family.max_hamming)
-    perm = torch.tensor(_KALIBR_PERM, dtype=torch.int64, device=dev)
     idx = (perm[None, None, :] - rotation[..., None]) % 4
     corners = torch.gather(quads, 2, idx[..., None].expand(B, M, 4, 2))
     return {

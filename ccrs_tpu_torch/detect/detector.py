@@ -1,19 +1,40 @@
 """TagDetector: the public detection API.
 
 Port of ``ccrs_tpu/detect/detector.py``.  The cold pipeline runs a frame
-batch chunk by chunk:
+batch in chunks, in the JAX package's three phases, so that the host and
+the card work at the same time:
 
-  device: threshold front-end (the CUDA kernel on a CUDA tensor)
-      ->  host: bitmap download, native C++ quad extraction
-      ->  device: refine + unsharp + decode, then the board-assisted
-          recovery decode of the tags the first pass missed.
+  phase 0: per chunk, queue the frame gather and the threshold front-end
+    (the CUDA kernel on a CUDA tensor), and start the packed bitmap's copy
+    to pinned host memory right behind it;
+  phase 1 (per chunk): read the bitmap, run the native C++ quad extraction
+    on the host, queue the refine + unsharp + decode and start the copy of
+    its outputs: the card decodes chunk k while the host extracts the quads
+    of chunk k+1;
+  phase 2 (per chunk, one chunk behind phase 1): read the decode outputs,
+    build per-frame results, queue the board-assisted recovery decode of
+    the tags the first pass missed and start its copies;
+  phase 3: read and merge the recovery results.
 
-Chunks take their natural size (the JAX package's CPU chunk plan); the
-decode buffer is sized to the chunk's largest quad count.  With a board,
-``detect_batch`` takes the wave-tracking video fast path by default
-(detect/tracked.py; ``track=False`` or ``CCRS_TRACK=0`` turns it off),
-whose anchors and audits run the cold pipeline on chosen frames.
-``detect`` on a single image wraps the batch path.
+Phase 2 of chunk k runs right after phase 1 of chunk k+1 (the JAX package
+runs all of phase 1 first): the decode's KLT maps, 28 bytes a pixel, are
+then alive for two chunks at most, whatever the batch size.
+
+Each step runs under a stage timer (``utils/profiling.py``):
+``detect/threshold``, ``detect/quadproc``, ``detect/dispatch``,
+``detect/decode`` and ``detect/assist``.  Uploads go through pinned
+memory without blocking; a read waits on the event recorded after its own
+copy, never on the whole stream.  Chunks take their natural size on every
+device (``chunk`` frames, the last one short).  The JAX package gives an
+accelerator ``chunk``-sized pieces plus ``cold_chunk``-sized tail pieces,
+padded, to bound its compiled shapes; eager torch compiles no shape, and
+the tail pieces only add per-chunk host work, so the port runs that plan
+(``_chunk_plan``, its last piece clipped: no padding frame) only under
+``CCRS_FORCE_CHUNK_PLAN``.  With a board, ``detect_batch`` takes
+the wave-tracking video fast path by default (detect/tracked.py;
+``track=False`` or ``CCRS_TRACK=0`` turns it off), whose anchors and
+audits run the cold pipeline on chosen frames.  ``detect`` on a single
+image wraps the batch path.
 
 Frame sharding (``shard=``, parallel/mesh.py): the batch is split into
 contiguous shards over the mesh, and the cold pipeline runs each shard's
@@ -30,17 +51,102 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import FrameShards, mesh_for, shard_frames
+from ..utils.profiling import stage
 from .assist import assist_candidates, assist_merge
 from .decode import refine_decode_fused_dense
 from .families import TagFamily, get_family
 from .quads import MAX_QUADS, extract_quads_batch
 from .threshold import TILE, threshold_front
 
-#: frames per pipeline chunk
-CHUNK = 64
-#: images at least this wide or tall run candidate extraction on a
-#: half-resolution pyramid level (tags there are big enough to lose nothing)
-PYRAMID_MIN_SIDE = 768
+#: decode outputs the results are built from, and those the assist merge reads
+_DECODE_KEYS = ("tag_id", "hamming", "valid", "corners")
+_ASSIST_KEYS = ("tag_id", "hamming", "corners")
+
+
+class _Fetch:
+    """A device-to-host copy started now and read later (the counterpart of
+    the JAX package's ``_async_fetch``).  For a CUDA tensor: a pinned host
+    tensor, ``copy_(src, non_blocking=True)`` on the source device's
+    current stream and an event recorded after it; ``get`` waits on that
+    event only, not on the work queued after it.  For a CPU tensor the
+    plain copy."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, src: torch.Tensor):
+        if src.device.type != "cuda":
+            self.host, self.event = src.cpu(), None
+            return
+        self.host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        self.host.copy_(src, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(src.device))
+
+    def get(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _fetch_all(out: dict, keys) -> dict:
+    """Start the host copies of ``out[k]`` for each of ``keys``."""
+    return {k: _Fetch(out[k]) for k in keys}
+
+
+def _read_all(fetches: dict) -> dict:
+    """Wait for the copies of ``_fetch_all`` and return the numpy arrays."""
+    return {k: f.get() for k, f in fetches.items()}
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload a host array without draining the stream: for a CUDA device
+    through a pinned copy with ``non_blocking=True`` (PyTorch's pinned-memory
+    cache records an event on the copy and reuses the block only after it
+    completes, so the source may go out of scope at once).  For the CPU
+    the array's own memory."""
+    host = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def _chunk_plan(B: int, chunk: int, small: int, cpu: bool,
+                forced: int | None = None) -> list:
+    """Chunk sizes covering a B-frame batch (``ccrs_tpu``'s plan, the same
+    values).  ``cpu`` (the natural plan, which the port runs on every
+    device): ``forced`` or ``chunk`` frames each, the last one short.
+    Otherwise the JAX accelerator plan (the port's under
+    ``CCRS_FORCE_CHUNK_PLAN``): ``forced`` repeated, or ``chunk``-sized
+    pieces plus ``small``-sized tail pieces; the sum may pass B
+    (``_chunk_spans`` clips the last piece)."""
+    if B <= 0:
+        return []
+    if cpu:
+        sizes = []
+        base = forced if forced is not None else chunk
+        rem = B
+        while rem > 0:
+            sizes.append(min(base, rem))
+            rem -= sizes[-1]
+        return sizes
+    if forced is not None:
+        return [forced] * ((B + forced - 1) // forced)
+    small = min(small, chunk)
+    sizes = [chunk] * (B // chunk)
+    rem = B - chunk * len(sizes)
+    sizes += [small] * ((rem + small - 1) // small)
+    return sizes
+
+
+def _chunk_spans(B: int, chunk: int, small: int, cpu: bool,
+                 forced: int | None = None) -> list:
+    """(first frame, frames) of each chunk of ``_chunk_plan``'s cover, the
+    last one clipped to the frames that remain: no padding frame."""
+    spans, lo = [], 0
+    for size in _chunk_plan(B, chunk, small, cpu, forced):
+        spans.append((lo, min(size, B - lo)))
+        lo += spans[-1][1]
+    return spans
 
 
 def _anchor_starts(B: int, K: int, p0: int) -> List[int]:
@@ -138,10 +244,18 @@ class TagDetector:
         the current CUDA device; pass "cpu" for the CPU); a ``dev_images``
         tensor runs on its own device.
 
-    Tracking knobs (environment, as in the JAX package): the anchor
-    cadence ``cold_every`` (``CCRS_TRACK_COLD_EVERY``, 40 frames) and the
-    sparse-board threshold ``sparse_frac`` (``CCRS_TRACK_SPARSE_FRAC``,
-    0.30) below which a segment is cold-detected instead of tracked.
+    Pipeline knobs (environment, read here, as in the JAX package): the
+    chunk size ``chunk`` (``CCRS_DETECT_CHUNK``, 64 frames), the tail
+    piece size of the JAX accelerator plan ``cold_chunk``
+    (``CCRS_TRACK_COLD_CHUNK``, 8 frames), and ``pyramid_min_side``
+    (``CCRS_PYRAMID_MIN_SIDE``, 768 px): frames at least this wide or tall
+    run the candidate stages on a half-resolution pyramid level.  A
+    non-empty ``CCRS_FORCE_CHUNK_PLAN``, read per call, runs the JAX
+    accelerator plan (``cold_chunk`` tail pieces) on any device; unset,
+    chunks take their natural size.  Tracking knobs: the anchor cadence ``cold_every``
+    (``CCRS_TRACK_COLD_EVERY``, 40 frames) and the sparse-board threshold
+    ``sparse_frac`` (``CCRS_TRACK_SPARSE_FRAC``, 0.30) below which a
+    segment is cold-detected instead of tracked.
     ``shard``: split each batch over the device mesh (parallel/mesh.py):
     None (default) shards when the mesh (``make_mesh()``) holds more than
     one CUDA device, ``CCRS_SHARD_DETECT=1``/``0`` forces it on or off; a
@@ -172,6 +286,9 @@ class TagDetector:
         if track is None:
             track = os.environ.get("CCRS_TRACK", "1") != "0"
         self.track = bool(track)
+        self.chunk = int(os.environ.get("CCRS_DETECT_CHUNK", "64"))
+        self.pyramid_min_side = int(os.environ.get("CCRS_PYRAMID_MIN_SIDE", "768"))
+        self.cold_chunk = int(os.environ.get("CCRS_TRACK_COLD_CHUNK", "8"))
         self.cold_every = int(os.environ.get("CCRS_TRACK_COLD_EVERY", "40"))
         self.sparse_frac = float(os.environ.get("CCRS_TRACK_SPARSE_FRAC", "0.30"))
         if shard is None:
@@ -226,15 +343,16 @@ class TagDetector:
         process).  Meant for a background thread while the host decodes
         images; safe to skip.
 
-        Runs, on ``self.device``: one pinned upload, one ``threshold_front``
-        launch at the scale this frame size takes, the bitmap download and
-        the native quad extraction, one ``refine_decode_fused_dense`` and
-        its result download, with a board the assist decode that reuses
-        the first pass's sharpened frames and maps, and with tracking one
-        ``wave_advance``.  The dummy batch is two frames of a fixed
-        pattern: eager torch builds no graph per shape, so the cost does
-        not depend on the batch size and ``n_frames`` (kept for the JAX
-        signature) sizes nothing.
+        Runs, on ``self.device``, through the cold pipeline's own copies
+        (pinned uploads, host copies read by their events): one upload, one
+        ``threshold_front`` launch at the scale this frame size takes, the
+        bitmap copy and the native quad extraction, one
+        ``refine_decode_fused_dense`` and the copy of its outputs, with a
+        board the assist decode that reuses the first pass's sharpened
+        frames and maps, and with tracking one ``wave_advance``.  The dummy
+        batch is two frames of a fixed pattern: eager torch builds no graph
+        per shape, so the cost does not depend on the batch size and
+        ``n_frames`` (kept for the JAX signature) sizes nothing.
 
         Leaves ``stats``, ``debug``, ``on_provisional`` and the tracking
         carry as they were and draws from no random generator.  The
@@ -251,7 +369,7 @@ class TagDetector:
         dev = self.device
         launched = thread_launches()
         load_png_library()
-        scale = 2 if max(height, width) >= PYRAMID_MIN_SIDE else 1
+        scale = 2 if max(height, width) >= self.pyramid_min_side else 1
         # a light frame with dark squares: blobs for the quad extractor
         B, side = 2, max(8, min(height, width) // 8)
         frame = np.full((height, width), 200, np.uint8)
@@ -260,14 +378,10 @@ class TagDetector:
         for y in ys:
             for x in xs:
                 frame[y : y + side, x : x + side] = 30
-        host = torch.from_numpy(np.stack([frame] * B))
-        if dev.type == "cuda":
-            part = host.pin_memory().to(dev, non_blocking=True)
-        else:
-            part = host.to(dev)
+        part = _to_device(np.stack([frame] * B), dev)
         sH, sW = height // scale, width // scale
         wmul = TILE * 8 // np.gcd(TILE, 8)
-        packed = threshold_front(part, scale).cpu().numpy()
+        packed = _Fetch(threshold_front(part, scale)).get()
         b1 = np.unpackbits(packed, axis=-1, count=sW + ((-sW) % wmul))[:, :sH, :sW]
         self._extract_quads(b1, board, scale)
         # the squares themselves as the quad buffer: every slot valid
@@ -276,17 +390,16 @@ class TagDetector:
         offs = np.array([[0, 0], [side, 0], [side, side], [0, side]], np.float32)
         quads = np.broadcast_to(tl[:n_quads, None] + offs, (B, n_quads, 4, 2)).copy()
         counts = np.full(B, n_quads, np.int32)
-        out = self._dispatch_decode(part, quads, counts)
-        self._collect_results(out, B)
+        out, fetches = self._dispatch_decode(part, quads, counts)
+        self._collect_results(_read_all(fetches), B)
         if board is not None:
             n_assist = min(n_quads, board.n_tags)
             aout = refine_decode_fused_dense(
-                self.family, part,
-                torch.as_tensor(quads[:, :n_assist], device=dev),
-                torch.ones((B, n_assist), dtype=torch.bool, device=dev),
+                self.family, part, _to_device(quads[:, :n_assist], dev),
+                _to_device(np.ones((B, n_assist), bool), dev),
                 do_refine=self.refine, sharp=out["sharp"], maps=out["maps"],
             )
-            aout["valid"].cpu()
+            _read_all(_fetch_all(aout, _ASSIST_KEYS))
             if self.track and self.refine:
                 n = board.n_tags
                 c = np.zeros((B, n, 4, 2), np.float32)
@@ -358,28 +471,28 @@ class TagDetector:
         return quads, counts
 
     def _dispatch_decode(self, dev_chunk, quads, counts):
-        """Truncate the (C, K) quad buffer to the chunk's largest count and
-        run the dense refine+decode on the chunk's device."""
+        """Truncate the (C, K) quad buffer to the chunk's largest count,
+        upload it (``_to_device``), queue the dense refine+decode on the chunk's device and start the host copies
+        of its outputs.  Returns (decode dict, ``_fetch_all`` handles)."""
         n_real = np.minimum(counts, quads.shape[1])
         Mq = max(int(n_real.max()) if n_real.size else 1, 1)
         dev = dev_chunk.device
-        qq = torch.as_tensor(
-            np.ascontiguousarray(quads[:, :Mq], np.float32), device=dev
-        )
-        qv = torch.as_tensor(np.arange(Mq)[None, :] < n_real[:, None], device=dev)
-        return refine_decode_fused_dense(
+        qq = _to_device(quads[:, :Mq].astype(np.float32), dev)
+        qv = _to_device(np.arange(Mq)[None, :] < n_real[:, None], dev)
+        out = refine_decode_fused_dense(
             self.family, dev_chunk, qq, qv, do_refine=self.refine
         )
+        return out, _fetch_all(out, _DECODE_KEYS)
 
-    def _collect_results(self, out, nb) -> List[Dict[int, np.ndarray]]:
-        """Build per-frame {tag_id: corners} from dense decode outputs,
-        keeping the lowest-hamming quad per (frame, tag) by a lexsort
-        group-by."""
-        tag_id = out["tag_id"].cpu().numpy().reshape(-1)
-        hamming = out["hamming"].cpu().numpy().reshape(-1)
-        valid = out["valid"].cpu().numpy().reshape(-1)
-        C, Mq = out["valid"].shape
-        corners = out["corners"].cpu().numpy().reshape(C * Mq, 4, 2)
+    def _collect_results(self, host, nb) -> List[Dict[int, np.ndarray]]:
+        """Build per-frame {tag_id: corners} from the host copies of the
+        dense decode outputs (``_DECODE_KEYS``), keeping the lowest-hamming
+        quad per (frame, tag) by a lexsort group-by."""
+        C, Mq = host["valid"].shape
+        tag_id = host["tag_id"].reshape(-1)
+        hamming = host["hamming"].reshape(-1)
+        valid = host["valid"].reshape(-1)
+        corners = host["corners"].reshape(C * Mq, 4, 2)
         qf = np.repeat(np.arange(C, dtype=np.int32), Mq)
 
         results: List[Dict[int, np.ndarray]] = [dict() for _ in range(nb)]
@@ -431,10 +544,23 @@ class TagDetector:
             return detect_batch_tracked(self, dev_all, board)
         return self._detect_batch_cold(dev_all, board)
 
-    def _detect_batch_cold(self, dev_all, board, idx=None) -> List[Dict[int, np.ndarray]]:
-        """The full detection pipeline over a (B, H, W) tensor, chunk by
-        chunk: threshold -> bitmap download -> native quad extraction ->
-        refine+decode -> board-assist recovery.
+    def _spans(self, B: int, chunk: int | None = None) -> list:
+        """(first frame, frames) of each chunk ``_detect_batch_cold`` runs
+        for B frames: ``chunk`` (a forced single size) or ``self.chunk``
+        frames each, the last one short; under ``CCRS_FORCE_CHUNK_PLAN``
+        the JAX accelerator plan with ``self.cold_chunk`` tail pieces, its
+        last piece clipped."""
+        natural = not os.environ.get("CCRS_FORCE_CHUNK_PLAN")
+        return _chunk_spans(B, self.chunk, self.cold_chunk, natural, chunk)
+
+    def _detect_batch_cold(
+        self, dev_all, board, chunk: int | None = None, idx=None
+    ) -> List[Dict[int, np.ndarray]]:
+        """The full detection pipeline over a (B, H, W) tensor: threshold ->
+        bitmap copy -> native quad extraction -> refine+decode ->
+        board-assist recovery, pipelined across the chunks of ``_spans``
+        in the three phases of the module docstring.  No padding frame is
+        detected.
 
         ``idx``: optional frame indices into ``dev_all`` to detect (the
         tracked path's anchors and audits); each chunk gathers its frames
@@ -444,44 +570,90 @@ class TagDetector:
         each shard's frames go through this pipeline on their own device."""
         if isinstance(dev_all, FrameShards):
             return dev_all.map_shards(
-                lambda part, local: self._detect_batch_cold(part, board, idx=local), idx
+                lambda part, local: self._detect_batch_cold(part, board, chunk, idx=local),
+                idx,
             )
         B, H, W = dev_all.shape
         if idx is not None:
-            sel = torch.as_tensor(np.asarray(idx, np.int64), device=dev_all.device)
-            B = int(sel.shape[0])
+            B = len(idx)
+        if B == 0:
+            return []
+        dev = dev_all.device
+        spans = self._spans(B, chunk)
         # Large-image path: the pixel-proportional candidate stages run at
         # half resolution when the image is >= pyramid_min_side a side;
         # refinement and decode always sample the full-resolution frames
-        scale = 2 if max(H, W) >= PYRAMID_MIN_SIDE else 1
+        scale = 2 if max(H, W) >= self.pyramid_min_side else 1
         sH, sW = H // scale, W // scale
         wmul = TILE * 8 // np.gcd(TILE, 8)
         pw = sW + ((-sW) % wmul)  # packed width after white padding
 
-        results: List[Dict[int, np.ndarray]] = []
-        for lo in range(0, B, CHUNK):
+        # Phase 0: queue every chunk's gather and threshold, each bitmap's
+        # host copy right behind its own threshold
+        if idx is not None:
+            sel = _to_device(np.asarray(idx, np.int64), dev)
+        parts, bitmaps = [], []
+        for lo, n in spans:
             if idx is None:
-                part = dev_all[lo : lo + CHUNK].contiguous()
+                part = dev_all[lo : lo + n].contiguous()
             else:
-                part = dev_all.index_select(0, sel[lo : lo + CHUNK])
-            packed = threshold_front(part, scale).cpu().numpy()
-            b1 = np.unpackbits(packed, axis=-1, count=pw)[:, :sH, :sW]
-            quads, counts = self._extract_quads(b1, board, scale)
-            out = self._dispatch_decode(part, quads, counts)
-            chunk_results = self._collect_results(out, part.shape[0])
+                part = dev_all.index_select(0, sel[lo : lo + n])
+            parts.append(part)
+            bitmaps.append(_Fetch(threshold_front(part, scale)))
+
+        pending = [None] * len(spans)
+        results: List[List[Dict[int, np.ndarray]]] = []
+        assist_pending = []
+
+        def phase1(ci):
+            """Host quad extraction, then queue the refine+decode."""
+            with stage("detect/threshold"):
+                packed = bitmaps[ci].get()  # (C, sHp, sWp/8)
+                bitmaps[ci] = None
+                b1 = np.unpackbits(packed, axis=-1, count=pw)[:, :sH, :sW]
+            with stage("detect/quadproc"):
+                quads, counts = self._extract_quads(b1, board, scale)
+            with stage("detect/dispatch"):
+                pending[ci] = self._dispatch_decode(parts[ci], quads, counts)
+
+        def phase2(ci):
+            """Read the decode outputs, queue the assist decode; the chunk's
+            frames, sharpened frames and maps go once it is queued."""
+            out, fetches = pending[ci]
+            pending[ci] = None
+            with stage("detect/decode"):
+                chunk_results = self._collect_results(_read_all(fetches), spans[ci][1])
+            results.append(chunk_results)
             if board is not None:
-                aq, av, aexp = assist_candidates(board, chunk_results, W, H)
-                if aq is not None:
-                    dev = part.device
-                    # reuse the primary pass's sharpened frames and maps
-                    aout = refine_decode_fused_dense(
-                        self.family, part, torch.as_tensor(aq, device=dev),
-                        torch.as_tensor(av, device=dev), do_refine=self.refine,
-                        sharp=out["sharp"], maps=out["maps"],
-                    )
-                    assist_merge(self.family, aexp, aout, chunk_results)
-            results.extend(chunk_results)
-        return results
+                with stage("detect/assist"):
+                    aq, av, aexp = assist_candidates(board, chunk_results, W, H)
+                    if aq is not None:
+                        # reuse the primary pass's sharpened frames and maps
+                        # (the returned dict holds them too: keep only the
+                        # copies of its outputs)
+                        aout = refine_decode_fused_dense(
+                            self.family, parts[ci], _to_device(aq, dev),
+                            _to_device(av, dev), do_refine=self.refine,
+                            sharp=out["sharp"], maps=out["maps"],
+                        )
+                        assist_pending.append((ci, aexp, _fetch_all(aout, _ASSIST_KEYS)))
+            parts[ci] = None
+
+        # Phases 1 and 2, phase 2 one chunk behind: the card decodes chunk
+        # k+1 while the host reads and assists chunk k, and at most two
+        # chunks' maps are alive
+        for ci in range(len(spans)):
+            phase1(ci)
+            if ci:
+                phase2(ci - 1)
+        phase2(len(spans) - 1)
+
+        # Phase 3: read and merge the assist results
+        if assist_pending:
+            with stage("detect/assist"):
+                for ci, aexp, fetches in assist_pending:
+                    assist_merge(self.family, aexp, _read_all(fetches), results[ci])
+        return [r for chunk_results in results for r in chunk_results]
 
     # -------------------------------------------------------------- single
     def detect(self, image) -> Dict[int, np.ndarray]:

@@ -78,6 +78,15 @@ def _pack(binary):
     return (bits * weights).sum(dim=-1).to(torch.uint8)
 
 
+def adaptive_threshold_packed(
+    images, tile: int = TILE, min_contrast: float = MIN_CONTRAST,
+    separate: bool = True,
+):
+    """``adaptive_threshold`` + bit packing: (B, H, W//8) uint8, MSB first.
+    (The detector runs ``threshold_front``, which also pools and pads.)"""
+    return _pack(adaptive_threshold(images, tile, min_contrast, separate))
+
+
 def adaptive_threshold_packed2(
     images, tile: int = TILE, min_contrast: float = MIN_CONTRAST
 ):

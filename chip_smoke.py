@@ -52,6 +52,23 @@ entry points a user calls, at the benchmark's sizes:
   the 512 sequence through ``TagDetector(shard=True)``, tracked and cold,
   bit for bit against the unsharded detector, with the threshold kernel's
   launches per shard;
+- phase pipeline: the cold detector's three-phase chunk pipeline (the
+  cold composition's detector, ``CCRS_TRACK=0``) on the 534 frames of the
+  512 phase and on both cameras of the cli phase (2 x 640 frames at
+  752x480), against the same frames detected chunk by chunk, one chunk
+  per call with the same chunk boundaries: detections equal bit for bit,
+  the threshold kernel launched; the best of 3 warm walls of each in
+  turns, the five ``detect/*`` stage totals of the best runs, the device's
+  busy share (torch.profiler), the peak device memory of each, and the
+  first synchronizing CUDA call that one pipelined 64-frame chunk still
+  makes (``torch.cuda.set_sync_debug_mode("error")``), by site and stage,
+  or none.  The peak memory above the frames of a pipelined run on the
+  first 128 and on all 534 frames of the 512 sequence: it must not grow
+  by more than ``FLAT_MIB`` (phase 2 runs one chunk behind phase 1, so at
+  most two chunks' KLT maps are alive).  Then the 512 phase's tracked main
+  path once with the natural chunk plan (the default) and once with the
+  JAX accelerator plan (``CCRS_FORCE_CHUNK_PLAN=1``: 8-frame tail pieces),
+  with both walls;
 - phase undistort: EuRoC cam0's undistortion map from 752x480 to 1024x1024
   and the remap of one cli frame, on the card and on the CPU (maps within
   1e-3 px, pixels within 1 gray level), with their times;
@@ -96,8 +113,10 @@ frames >= 80%, a CPU float64 re-solve of the joint BA from the card's
 result at the same RMS within 1e-6 px, and no speculation error.  In
 every phase the threshold kernel is held bit for bit against its plain
 torch version on every frame (for cli: every decoded frame of both
-cameras) and both are timed over the whole sequence in the detector's
-chunks of 64: the kernel by CUDA events around the loop of wrapper calls,
+cameras) and both are timed over the whole sequence in the chunks of the
+cold detector's plan on the card (64-frame pieces, then 8-frame tail
+pieces, the last one clipped): the kernel by CUDA events around the loop
+of wrapper calls,
 its device time by CUDA events around back-to-back launches (queued behind
 a sleep kernel) and under torch.profiler (one launch per call, as the
 library counts them, or the run fails), beside the bytes it must move and
@@ -149,6 +168,10 @@ EUROC_CAM0 = [471.019, 470.243, 367.122, 246.741, 0.67485, 1.0]
 SPAN_CLI = 1.5
 #: frames of the 512 sequence the mesh phase detects sharded
 N_MESH_DETECT = 128
+#: MiB the pipelined cold detector's peak memory above the frames may grow
+#: by from 128 to 534 frames of 512x512 (one 64-frame chunk's KLT maps are
+#: 448 MiB, so a third chunk alive at once fails it)
+FLAT_MIB = 256
 #: cli cam0 frames the colour phase writes as RGB and as gray PNGs
 N_COLOUR = 48
 #: CCRS_PREWARM of the fresh phase's subprocess runs, in this order
@@ -287,14 +310,16 @@ def rms_of(board, batch, model, rtvecs):
     return float(np.sqrt(np.mean(errs**2)))
 
 
-def same_detections(got, want, label, what):
-    """Ids exact per frame, corners within 1e-3 px."""
+def same_detections(got, want, label, what, exact=False):
+    """Ids exact per frame, corners within 1e-3 px (bit for bit if exact)."""
+    if len(got) != len(want):
+        raise RuntimeError(f"{label} {what}: {len(got)} frames against {len(want)}")
     for f, (g, w) in enumerate(zip(got, want)):
         if sorted(g) != sorted(w):
             raise RuntimeError(f"{label} {what}: frame {f} ids differ: {set(g) ^ set(w)}")
         for t in g:
             err = float(np.abs(g[t] - w[t]).max())
-            if not (err < 1e-3):
+            if not (err == 0 if exact else err < 1e-3):
                 raise RuntimeError(f"{label} {what}: frame {f} tag {t} corner diff {err} px")
 
 
@@ -344,7 +369,6 @@ def run_phase(size, n_frames, card):
     from ccrs_tpu_torch.calib import calib_camera
     from ccrs_tpu_torch.calib.pipeline import calibrate_camera_with_retries
     from ccrs_tpu_torch.detect import TagDetector, get_family
-    from ccrs_tpu_torch.detect.detector import PYRAMID_MIN_SIDE
     from ccrs_tpu_torch.models import GenericModel, zeros_like_model
     from ccrs_tpu_torch.testdata import render_frames_device, smooth_sequence_poses
     from ccrs_tpu_torch.types import CalibParams
@@ -463,7 +487,7 @@ def run_phase(size, n_frames, card):
         )
         if busy <= 0:
             print(f"[{size} profiled] ({card}) device time not measured: the profiler showed none")
-    return frames, 2 if size >= PYRAMID_MIN_SIDE else 1, sum(launches), run
+    return frames, 2 if size >= cold_det.pyramid_min_side else 1, sum(launches), run
 
 
 def kernel_device_ms(torch, parts, scale):
@@ -529,6 +553,15 @@ def kernel_events_ms(torch, parts, scale):
     return start.elapsed_time(end) / TIMING_REPS
 
 
+def chunk_spans(B):
+    """(first frame, frames) of each chunk the cold detector runs for a
+    B-frame batch on the card (``CCRS_DETECT_CHUNK`` frames each, the last
+    one short)."""
+    from ccrs_tpu_torch.detect import TagDetector
+
+    return TagDetector("t36h11", device="cuda")._spans(B)
+
+
 def check_kernel(frames, scale, card, label):
     """Kernel against its plain version on every frame, bit for bit; the
     time of both over the whole sequence in main-path chunks (CUDA events
@@ -537,15 +570,16 @@ def check_kernel(frames, scale, card, label):
     and the bytes it must move with the bound they give."""
     import torch
 
-    from ccrs_tpu_torch.detect.detector import CHUNK
     from ccrs_tpu_torch.detect.threshold import threshold_front_plain
     from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
 
     B, H, W = frames.shape
     tag = f"[{label}] ({card})"
+    spans = chunk_spans(B)
+    plan = "+".join(str(n) for _, n in spans)
     max_err, out_bytes = 0, 0
-    for lo in range(0, B, CHUNK):
-        part = frames[lo : lo + CHUNK].contiguous()
+    for lo, n in spans:
+        part = frames[lo : lo + n].contiguous()
         got = threshold_front_cuda(part, scale)
         want = threshold_front_plain(part, scale)
         torch.cuda.synchronize()
@@ -558,7 +592,7 @@ def check_kernel(frames, scale, card, label):
         out_bytes += got.numel()
     print(f"{tag} threshold kernel == plain version bit for bit on all {B} frames")
 
-    parts = [frames[lo : lo + CHUNK].contiguous() for lo in range(0, B, CHUNK)]
+    parts = [frames[lo : lo + n].contiguous() for lo, n in spans]
     ms = time_ms(torch, lambda: [threshold_front_cuda(p, scale) for p in parts])
     plain_ms = time_ms(torch, lambda: [threshold_front_plain(p, scale) for p in parts])
     device_ms = kernel_events_ms(torch, parts, scale)
@@ -569,7 +603,7 @@ def check_kernel(frames, scale, card, label):
     share = bound_us / (device_ms * 1e3)
     print(
         f"{tag} threshold over {B}x{H}x{W} {frames.dtype} (scale {scale}) in {len(parts)} "
-        f"chunks of {CHUNK}: kernel {ms:.4f} ms (CUDA events around the calls), "
+        f"chunks of the detector's plan ({plan}): kernel {ms:.4f} ms (CUDA events around the calls), "
         f"plain torch {plain_ms:.4f} ms"
     )
     print(
@@ -585,7 +619,7 @@ def check_kernel(frames, scale, card, label):
             f"{tag} torch.profiler device time {profiler_ms * 1e3:.3f} us per pass (mean of "
             f"the {per_pass:g} kernels it saw per pass x {len(parts)} calls)"
         )
-    return dict(shape=f"{label} {frames.dtype}, scale {scale}, chunks of {CHUNK}",
+    return dict(shape=f"{label} {frames.dtype}, scale {scale}, chunks {plan}",
                 frames=B, bytes=n_bytes, bound_us=bound_us, device_ms=device_ms,
                 profiler_ms=profiler_ms, bound_share=share, ms=ms, plain_ms=plain_ms,
                 max_abs_err=max_err)
@@ -1048,6 +1082,197 @@ def run_rig_phase(card, run512, board):
     return dict(problem=dict(RIG, residuals=solves[0]["residuals"], reduced_dim=M),
                 solves=solves, rms_mixed_minus_f64=d_rms, sharded_theta_rel=rel,
                 single_512=single, single_512_rms_spread=spread)
+
+
+def stage_at(path, line):
+    """The ``with stage("...")`` block of ``path`` that holds ``line`` (the
+    nearest such line above it, indented less), or None."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    depth = len(lines[line - 1]) - len(lines[line - 1].lstrip())
+    for text in reversed(lines[: line - 1]):
+        ind = len(text) - len(text.lstrip())
+        if text.strip() and ind < depth:
+            m = re.match(r'\s*with stage\("([^"]+)"\)', text)
+            if m:
+                return m.group(1)
+            if text.lstrip().startswith("def "):
+                return None
+            depth = ind
+    return None
+
+
+def first_sync(torch, fn):
+    """Run fn under ``torch.cuda.set_sync_debug_mode("error")``: torch
+    raises at the first synchronizing CUDA call it knows of (a blocking
+    copy, ``.item()``, a stream or device synchronize; a wait on a CUDA
+    event is not one).  Returns None when fn completes without one, else
+    {site, via, stage}: the Python line that made it, the line of
+    ``_detect_batch_cold`` it was reached from and that line's stage
+    timer.  A blocking ``.item()`` after fn is the control: the run fails
+    unless torch raises on it too."""
+    import traceback
+
+    from ccrs_tpu_torch.detect import detector
+
+    found = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:
+            fn()
+        except RuntimeError as e:
+            if "synchronizing" not in str(e):
+                raise
+            tb = traceback.extract_tb(e.__traceback__)
+            via = [fr.lineno for fr in tb if fr.filename == detector.__file__
+                   and fr.name == "_detect_batch_cold"]
+            found = dict(site=f"{os.path.relpath(tb[-1].filename)}:{tb[-1].lineno}",
+                         via=f"detect/detector.py:{via[-1]}" if via else None,
+                         stage=stage_at(detector.__file__, via[-1]) if via else None)
+        try:
+            torch.ones(1, device="cuda").item()
+        except RuntimeError as e:
+            if "synchronizing" not in str(e):
+                raise
+        else:
+            raise RuntimeError("set_sync_debug_mode('error') let the control .item() pass")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    return found
+
+
+def run_pipeline_phase(card, frames512, cli_frames, board):
+    """The cold detector's chunk pipeline against one chunk per call with
+    the same chunk boundaries, on the 512 sequence and on both cli
+    cameras: bit-equal detections, the best of 3 warm walls of each (in
+    turns), the ``detect/*`` stage totals, busy share, peak memory and a
+    synchronizing call of one pipelined chunk; the peak memory at 128 and
+    534 frames (flat within ``FLAT_MIB``); then the tracked 512 main path
+    with the natural and the JAX accelerator chunk plan.  Returns (the
+    phase's numbers, the threshold launches of the pipelined and tracked
+    runs)."""
+    import torch
+
+    from ccrs_tpu_torch.detect import TagDetector
+    from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
+    from ccrs_tpu_torch.utils import profiling
+
+    with env_set(CCRS_TRACK="0"):
+        det = TagDetector("t36h11", device="cuda")
+    if det.track:
+        raise RuntimeError("CCRS_TRACK=0 left the detector tracking")
+
+    def pipelined(seqs):
+        return [r for seq in seqs for r in det.detect_batch(None, board, dev_images=seq)]
+
+    def chunk_by_chunk(seqs):
+        return [r for seq in seqs for lo, n in chunk_spans(seq.shape[0])
+                for r in det.detect_batch(None, board, dev_images=seq[lo : lo + n])]
+
+    datasets = [
+        (f"{N_512}x512x512", [frames512]),
+        (f"2 cameras x {N_CLI}x480x752", [torch.as_tensor(f).cuda() for f in cli_frames]),
+    ]
+    result, launches = {"datasets": []}, 0
+    for label, seqs in datasets:
+        tag = f"[pipeline {label}] ({card})"
+        plans = ["+".join(str(n) for _, n in chunk_spans(s.shape[0])) for s in seqs]
+        ref = chunk_by_chunk(seqs)  # warm, and the reference
+        threshold_front_cuda.launches = 0
+        got = pipelined(seqs)
+        launched = threshold_front_cuda.launches
+        same_detections(got, ref, tag, "pipelined against chunk by chunk", exact=True)
+        if launched <= 0:
+            raise RuntimeError(f"{tag} the pipeline never launched the threshold kernel")
+        launches += launched
+        runs = {"pipelined": [], "chunk_by_chunk": []}
+        for mode in ("pipelined", "chunk_by_chunk", "chunk_by_chunk", "pipelined",
+                     "pipelined", "chunk_by_chunk"):
+            fn = pipelined if mode == "pipelined" else chunk_by_chunk
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            profiling.reset()
+            threshold_front_cuda.launches = 0
+            out, wall = sync_time(torch, lambda: fn(seqs))
+            if mode == "pipelined":
+                launches += threshold_front_cuda.launches
+            same_detections(out, ref, tag, f"{mode} warm run", exact=True)
+            runs[mode].append(dict(
+                wall_s=wall, stages_s={k: v for k, v in profiling.totals().items()
+                                       if k.startswith("detect/")},
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                peak_above_input_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
+            ))
+        b, w = device_busy_share(torch, lambda: pipelined(seqs))
+        busy = dict(busy_s=b, wall_s=w, share=b / w if b > 0 else None)
+        entry = dict(dataset=label, plan=plans, frames=len(ref),
+                     tags=sum(len(r) for r in ref), busy_pipelined=busy)
+        for mode, rs in runs.items():
+            best = min(rs, key=lambda r: r["wall_s"])
+            entry[mode] = dict(walls_s=[r["wall_s"] for r in rs], best_s=best["wall_s"],
+                               stages_s=best["stages_s"],
+                               peak_mib=max(r["peak_mib"] for r in rs),
+                               peak_above_input_mib=max(r["peak_above_input_mib"] for r in rs))
+            walls = ", ".join(f"{r['wall_s']:.3f}" for r in rs)
+            print(f"{tag} {mode}: walls {walls} s, "
+                  f"best {best['wall_s']:.3f} s; peak memory {entry[mode]['peak_mib']:.1f} MiB "
+                  f"({entry[mode]['peak_above_input_mib']:.1f} above the frames)")
+            for name, sec in sorted(best["stages_s"].items(), key=lambda kv: -kv[1]):
+                print(f"{tag}   {mode} {name:18s} {sec:8.4f} s")
+        print(f"{tag} chunk plan per sequence {plans}; detections equal bit for bit in "
+              f"every run; {entry['tags']} (frame, tag) pairs; pipelined under "
+              f"torch.profiler: device busy {b:.3f} s of {w:.3f} s wall")
+        result["datasets"].append(entry)
+
+    # a synchronizing call that one pipelined 64-frame chunk still makes
+    one = frames512[:64].contiguous()
+    det.detect_batch(None, board, dev_images=one)
+    sync = first_sync(torch, lambda: det.detect_batch(None, board, dev_images=one))
+    if sync is None:
+        print(f"[pipeline sync] ({card}) a 64-frame chunk ran to its end under "
+              f"set_sync_debug_mode('error'): torch saw no synchronizing call in it")
+    else:
+        print(f"[pipeline sync] ({card}) first synchronizing call in a 64-frame chunk: "
+              f"{sync['site']}, reached from {sync['via']} in {sync['stage']}")
+    result["first_sync_one_chunk"] = sync
+
+    # peak memory above the frames against the batch size
+    peak = {}
+    for n in (128, N_512):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        threshold_front_cuda.launches = 0
+        det.detect_batch(None, board, dev_images=frames512[:n])
+        torch.cuda.synchronize()
+        launches += threshold_front_cuda.launches
+        peak[n] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    grew = peak[N_512] - peak[128]
+    print(f"[pipeline memory] ({card}) peak above the frames, pipelined: 128 frames "
+          f"{peak[128]:.1f} MiB, {N_512} frames {peak[N_512]:.1f} MiB (grew {grew:.1f}, "
+          f"limit {FLAT_MIB})")
+    if grew > FLAT_MIB:
+        raise RuntimeError(f"[pipeline memory] peak memory grew {grew:.1f} MiB from 128 to "
+                           f"{N_512} frames (limit {FLAT_MIB})")
+    result["peak_above_input_mib_by_frames"] = {str(n): v for n, v in peak.items()}
+
+    # the natural plan against the JAX accelerator plan's 8-frame tail
+    # pieces in the tracked main path's sweeps
+    tracked = {}
+    for plan, env in (("natural", {}), ("jax_plan", {"CCRS_FORCE_CHUNK_PLAN": "1"})):
+        with env_set(**env):
+            run = main_path(512, N_512, frames512, board, card,
+                            f"[pipeline tracked, {plan} chunk plan] ({card})")
+        launches += run["launches"]
+        tracked[plan] = dict(wall_s=run["t_total"], stats=run["stats"],
+                             stages_s=run["stages"])
+    print(f"[pipeline tracked] ({card}) main path walls: natural plan "
+          f"{tracked['natural']['wall_s']:.3f} s, CCRS_FORCE_CHUNK_PLAN=1 "
+          f"{tracked['jax_plan']['wall_s']:.3f} s")
+    result["tracked_chunk_plan"] = tracked
+    return result, launches
 
 
 @contextlib.contextmanager
@@ -1514,6 +1739,8 @@ def main() -> int:
 
     rig = run_rig_phase(card, run512, create_default_6x6_board())
     launches_mesh = run_mesh_phase(card, frames512, run512, create_default_6x6_board(), joint)
+    pipeline, launches_pipeline = run_pipeline_phase(card, frames512, cli_frames,
+                                                     create_default_6x6_board())
     del frames512
     run_undistort_phase(card, cli_frames[0][0])
     launches_colour = run_colour_phase(card, cli_frames[0][:N_COLOUR])
@@ -1528,17 +1755,21 @@ def main() -> int:
     print(json.dumps({"ccl": ccl, "card": card}))
     print(json.dumps({"fresh": fresh, "rig": rig, "card": card}))
     print(json.dumps({"bench": bench, "card": card}))
+    print(json.dumps({"pipeline": pipeline, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "threshold_front",
         "route": "cuda",
         "source": "ccrs_tpu_torch/csrc/threshold.cu",
         "replaces": "ccrs_tpu/ops/threshold_pallas.py:35",
         "launches": (launches512 + launches1024 + launches_cli + launches_mesh
-                     + launches_colour + launches_fresh + launches_bench),
+                     + launches_pipeline + launches_colour + launches_fresh
+                     + launches_bench),
         "launches_512": launches512,
         "launches_1024": launches1024,
         "launches_cli": launches_cli,
         "launches_mesh": launches_mesh,
+        # the pipeline phase's pipelined cold detections (warm runs included)
+        "launches_pipeline": launches_pipeline,
         "launches_colour": launches_colour,
         # the subprocess CLI runs' own launches, and their warm-up threads'
         # (each child prints its library's count and, of that, what the

@@ -4,8 +4,11 @@ on the card against the CPU path, speculative calibration on the card
 against the cold ladder, the CLI on the card against the CLI on the CPU,
 the sharded solve and detection on every visible card (two shards of
 the card when one is visible) against the unsharded ones, the warm-up
-(exactly one kernel launch, nothing else changed) and the mixed-precision
-solvers on the card against the CPU.  They skip without a CUDA device.
+(exactly one kernel launch, nothing else changed), the mixed-precision
+solvers on the card against the CPU, and the cold detector's chunk
+pipeline against the same chunks detected one per call, bit for bit, also
+with the stream held back by sleep kernels, and its peak memory flat in
+the batch size.  They skip without a CUDA device.
 
 This file imports neither jax nor ``ccrs_tpu``, so it also runs on a
 machine with the card and no JAX (``tests/conftest.py`` imports jax, hence
@@ -470,3 +473,111 @@ def test_mixed_solvers_on_the_card_match_the_cpu(card):
     sharded = multi_ba_sharded_mixed(project_eucm, *gpu["args"], mesh=mesh)
     rel = float(((sharded.theta - mixed.theta).abs() / mixed.theta.abs()).max())
     assert rel < 1e-8, rel
+
+
+#: EuRoC cam0 (the reference example's UCM) written as EUCM with beta = 1
+EUROC_CAM0 = [471.019, 470.243, 367.122, 246.741, 0.67485, 1.0]
+#: cycles of the sleep kernel queued before each upload of the delayed run
+#: (about 10 ms at the H100's clocks), and before its first chunk
+UPLOAD_SLEEP = 20_000_000
+
+
+def _camera_frames(n, device):
+    """n noisy frames of one 752x480 EuRoC-like camera (EUCM), uint8."""
+    board = create_default_6x6_board()
+    gt = GenericModel("eucm", EUROC_CAM0, 752, 480)
+    poses = smooth_sequence_poses(n, board, seed=4)
+    return render_frames_device(
+        gt, board, get_family("t36h11"), poses, noise=1.5,
+        generator=torch.Generator(device=device).manual_seed(4), device=device,
+    )
+
+
+def _same_bits(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for t in g:
+            np.testing.assert_array_equal(g[t], w[t])
+
+
+def _chunk_by_chunk(det, board, frames):
+    """The cold detector on each chunk of its plan in a call of its own
+    (the same chunk boundaries, no overlap between chunks)."""
+    return [r for lo, n in det._spans(frames.shape[0])
+            for r in det._detect_batch_cold(frames[lo : lo + n], board)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["534x512x512", "534x512x512-jax-plan", "640x480x752"])
+def test_cold_pipeline_on_the_card_equals_chunk_by_chunk(card, shape, monkeypatch):
+    """The three-phase pipeline on the card gives the bits of the same
+    chunks detected one per call; 534 frames run as 8 x 64 + 22, and under
+    ``CCRS_FORCE_CHUNK_PLAN`` (the JAX accelerator plan) as 8 x 64 + 8 +
+    8 + 6."""
+    from ccrs_tpu_torch.detect import detector as TD
+
+    if shape == "534x512x512":
+        frames, plan = _frames(512, 534, noise=1.5, device="cuda"), [64] * 8 + [22]
+    elif shape == "534x512x512-jax-plan":
+        monkeypatch.setenv("CCRS_FORCE_CHUNK_PLAN", "1")
+        frames, plan = _frames(512, 534, noise=1.5, device="cuda"), [64] * 8 + [8, 8, 6]
+    else:
+        frames, plan = _camera_frames(640, "cuda"), [64] * 10
+    board = create_default_6x6_board()
+    det = TagDetector("t36h11", track=False, device=card)
+    sizes = []
+    real = TD.threshold_front
+    monkeypatch.setattr(TD, "threshold_front",
+                        lambda part, scale: sizes.append(part.shape[0]) or real(part, scale))
+    got = det.detect_batch(None, board, dev_images=frames)
+    assert sizes == plan
+    _same_bits(got, _chunk_by_chunk(det, board, frames))
+    assert sum(len(g) for g in got) > 10 * len(got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("audit", [False, True], ids=["contiguous", "idx"])
+def test_cold_pipeline_on_a_delayed_card_gives_the_same_bits(card, audit, monkeypatch):
+    """A sleep kernel queued before the first chunk and before every upload
+    holds the stream: a host copy read before its event completed, or a
+    pinned upload source freed before its copy ran, would change the bits."""
+    from ccrs_tpu_torch.detect import detector as TD
+
+    frames = _frames(512, 96, noise=1.5, device="cuda")
+    board = create_default_6x6_board()
+    idx = np.random.default_rng(0).permutation(96)[:70] if audit else None
+    det = TagDetector("t36h11", track=False, device=card)
+    want = det._detect_batch_cold(frames, board, idx=idx)
+    real = TD._to_device
+
+    def delayed_upload(arr, device):
+        torch.cuda._sleep(UPLOAD_SLEEP)
+        return real(arr, device)
+
+    monkeypatch.setattr(TD, "_to_device", delayed_upload)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10 * UPLOAD_SLEEP)
+    got = det._detect_batch_cold(frames, board, idx=idx)
+    _same_bits(got, want)
+    assert sum(len(g) for g in got) > 20 * len(got)
+
+
+@pytest.mark.cuda
+def test_cold_pipeline_peak_memory_does_not_grow_with_the_batch(card):
+    """Phase 2 runs one chunk behind phase 1, so at most two chunks' KLT
+    maps (448 MiB each at 64 x 512^2) are alive: the peak above the frames
+    is the same within 256 MiB for 128 and for 384 frames."""
+    frames = _frames(512, 384, noise=1.5, device="cuda")
+    board = create_default_6x6_board()
+    det = TagDetector("t36h11", track=False, device=card)
+    det._detect_batch_cold(frames[:64], board)  # warm
+    peak = {}
+    for n in (128, 384):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        det._detect_batch_cold(frames[:n], board)
+        torch.cuda.synchronize()
+        peak[n] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    assert peak[384] - peak[128] < 256, peak
