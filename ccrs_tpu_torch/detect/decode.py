@@ -7,7 +7,10 @@ unsharp-masked frame, a local black/white threshold from the tag's own
 border ring and the surrounding white ring, and code matching as one
 (Q, nbits) x (nbits, 4*ncodes) matmul — hamming distance through the ±1
 dot-product identity (score = nbits - 2*hamming).  The ±1 products and
-their <= 64-term sums are exact in float32.
+their <= 64-term sums are exact in float32.  The KLT maps, the corner
+refinement, the unsharp mask and the bit sampling come from ``sample.py``,
+whose branch (banded and hat-weight products, or tap loops and gathers)
+follows the frames' device: no caller here picks one.
 
 The compact path it superseded is kept beside it: ``unsharp``,
 ``decode_quads_compact`` over a (Q, 4, 2) quad list with a frame index per

@@ -19,7 +19,8 @@ sweep) and ``right-1-w`` (backward sweep) in one batched pass that
 Everything is batched tensor code on the frames' device (the JAX package
 writes it as one jitted graph; the port runs it eagerly).  The refine and
 decode reuse the cold path's ``build_klt_maps``, ``refine_corners_mm``,
-``unsharp_mm`` and ``_decode_core_dense``.  Image-space math is float32,
+``unsharp_mm`` and ``_decode_core_dense``, in the branch of ``sample.py``
+that the frames' device takes.  Image-space math is float32,
 ``coast_age`` int32, as in the JAX package.
 
 Two places are written so the result does not depend on the library:

@@ -23,8 +23,9 @@ entry points a user calls, at the benchmark's sizes:
   --step 4``, 160 frames per camera);
 - phase fresh: the user's real first run.  On the cli phase's dataset,
   ``python -m ccrs_tpu_torch <ds> --model eucm --cam-num 2 --platform cuda
-  --no-rerun --seed 1`` as a SUBPROCESS, four times in turns with
-  ``CCRS_PREWARM=1``, ``0``, ``1``, ``0``: each run's wall time from
+  --no-rerun --seed 1`` as a SUBPROCESS, twice, with ``CCRS_PREWARM=1``
+  and ``0`` (four runs in turns until the sampling phase needed the
+  time): each run's wall time from
   process start to exit, its "detecting feature took" line and stage
   timers; gates: exit code 0 on the card, ``cam0.json``, ``cam1.json`` and
   ``extrinsics.json`` byte for byte equal across the runs (warm-up changes
@@ -69,6 +70,32 @@ entry points a user calls, at the benchmark's sizes:
   path once with the natural chunk plan (the default) and once with the
   JAX accelerator plan (``CCRS_FORCE_CHUNK_PLAN=1``: 8-frame tail pieces),
   with both walls;
+- phase sampling: the two branches of ``detect/sample.py`` (banded and
+  hat-weight products, or tap loops and gathers; the card takes the
+  matmul branch unless a caller forces one).  (a) The four functions
+  (``unsharp_mm``, ``build_klt_maps``, ``refine_corners_mm``,
+  ``sample_bilinear_mm``) on the inputs the detector gives them in one
+  64-frame chunk of the 512 frames (its quadproc quads) and in the first
+  wave of the tracked 512 path, through both branches on the card: held
+  at ``tests/test_sample.py``'s tolerances (refined corners where the
+  decode found a tag), and the card's matmul branch against the CPU's on 8
+  frames or rows (float32 rounding); the synthetic saddle within 0.05 px
+  in both; the first 64 frames detected in one call and in calls of 32
+  and of 8 under each branch (the gather branch's corners must not depend on the
+  batch; the matmul branch's difference is printed).  (b) The cold
+  detector and the tracked main path under each
+  branch (``sample.matmul_branch``): ids equal, 99.9% of the corners
+  within 5e-3 px and all within 5e-2 px,
+  and for the tracked 512 and 1024 main paths the calibration gates of
+  the 512 phase (focal < 1%, median < 0.3 px, CPU float64 re-solve within
+  1e-6 px).  (c) In turns (matmul, gather, gather, matmul, matmul,
+  gather) at 512, 1024 and on the cli frames: the best of 3 warm walls,
+  the ``detect/*`` stages, busy share, peak memory above the frames,
+  CUDA kernels and device time per cold 64-frame chunk and per wave
+  (torch.profiler), and one line naming the card's default branch and
+  what this run's rule (keep the gather branch if the matmul branch's
+  best 512 wall, tracked or cold, is slower by more than the spread
+  between runs) would take;
 - phase undistort: EuRoC cam0's undistortion map from 752x480 to 1024x1024
   and the remap of one cli frame, on the card and on the CPU (maps within
   1e-3 px, pixels within 1 gray level), with their times;
@@ -107,6 +134,8 @@ than cold_every + 4 frames, tracked total >= cold total), the cold
 detector's ids on the card equal to the CPU's on 4 frames and the tracked
 detector's on the first 48 frames (corners within 1e-3 px, equal stats),
 and no recorded speculation error (nor audits without a speculation).
+The card-vs-CPU comparisons run the CPU side in the card's sampling
+branch, so both compute the same formulation.
 The cli runs gate fx within 1% for both cameras, each median of
 ``report.txt`` below 0.3 px, the extrinsic within 2e-3 of the rig, usable
 frames >= 80%, a CPU float64 re-solve of the joint BA from the card's
@@ -175,7 +204,7 @@ FLAT_MIB = 256
 #: cli cam0 frames the colour phase writes as RGB and as gray PNGs
 N_COLOUR = 48
 #: CCRS_PREWARM of the fresh phase's subprocess runs, in this order
-FRESH_PREWARM = ("1", "0", "1", "0")
+FRESH_PREWARM = ("1", "0")
 #: bench_multicam.py's rig: cameras, frames per camera, visibility of cameras > 0
 RIG = dict(n_cams=8, n_frames=1000, vis_frac=0.75)
 #: the bench phase's programs (each in a fresh process, at full size) and
@@ -184,6 +213,26 @@ BENCH_PROGRAMS = (("bench_torch.py", 600), ("bench_multicam_torch.py", 300))
 #: frames per shape the ccl phase extracts on the card, and of those on the CPU
 N_CCL = {512: 64, 1024: 16}
 N_CCL_CPU = 8
+#: the four functions of detect/sample.py the sampling phase holds
+SAMPLING_FUNCS = ("unsharp_mm", "build_klt_maps", "refine_corners_mm", "sample_bilinear_mm")
+#: (rtol, atol) of the matmul branch against the gather branch on the card:
+#: tests/test_sample.py's (samples and images in gray levels, corners in px)
+SAMPLING_BRANCH_TOL = {"unsharp_mm": (0, 1e-2), "build_klt_maps": (1e-4, 2e-2),
+                       "refine_corners_mm": (0, 5e-3), "sample_bilinear_mm": (0, 1e-2)}
+#: (rtol, atol) of the card's matmul branch against the CPU's: float32
+#: sums in another order (the maps sum 49 products of values up to ~1e5)
+SAMPLING_CPU_TOL = {"unsharp_mm": (0, 1e-3), "build_klt_maps": (1e-5, 2e-2),
+                    "refine_corners_mm": (0, 1e-3), "sample_bilinear_mm": (0, 1e-3)}
+#: frames of the chunk and rows of the wave the CPU samples as well
+N_SAMPLING_CPU = 4
+#: the two branches' corners of the same detected tag: at least this share
+#: within BRANCH_CORNER_TOL px (tests/test_sample.py's refine tolerance)
+#: and every one within BRANCH_CORNER_MAX px.  An ill-conditioned corner
+#: moves by up to a few 1e-2 px under a 1-ulp change of its window sums
+#: (ROADMAP, C), and the branches sum in another order
+BRANCH_CORNER_TOL = 5e-3
+BRANCH_CORNER_SHARE = 0.999
+BRANCH_CORNER_MAX = 5e-2
 #: candidate capacity per frame in the ccl phase, device and native route
 CCL_MAX_QUADS = 128
 #: native quads without a device quad within 1.5 px: most a run may show.
@@ -310,8 +359,46 @@ def rms_of(board, batch, model, rtvecs):
     return float(np.sqrt(np.mean(errs**2)))
 
 
-def same_detections(got, want, label, what, exact=False):
-    """Ids exact per frame, corners within 1e-3 px (bit for bit if exact)."""
+def cpu_resolve_gate(board, batch, model, rtvecs, tag):
+    """A float64 re-solve on the CPU from the card's result lands on the
+    same optimum: RMS within 1e-6 px.  Returns the card's RMS."""
+    from ccrs_tpu_torch.calib import calib_camera
+
+    t1 = time.perf_counter()
+    cpu_res = calib_camera(
+        board, batch, model, xy_same_focal=False, disabled_distortions=0,
+        fixed_focal=False, device="cpu",
+    )
+    if cpu_res is None:
+        raise RuntimeError(f"{tag} CPU float64 re-solve failed")
+    rms_card = rms_of(board, batch, model, rtvecs)
+    drift = abs(rms_card - rms_of(board, batch, *cpu_res))
+    print(
+        f"{tag} CPU float64 re-solve: |rms_card - rms_cpu| = {drift:.3e} px "
+        f"({time.perf_counter() - t1:.1f} s)"
+    )
+    if not (drift < 1e-6):
+        raise RuntimeError(f"{tag} float64 interchange drift {drift:.3e} px")
+    return rms_card
+
+
+def card_branch():
+    """Whether the card takes the matmul branch of ``detect/sample.py`` by
+    default (the port decides by the frames' device alone)."""
+    import torch
+
+    from ccrs_tpu_torch.detect import sample
+
+    return sample._use_mm(None, torch.empty(0, device="cuda"))
+
+
+def branch_name(matmul):
+    return "matmul" if matmul else "gather"
+
+
+def same_detections(got, want, label, what, exact=False, tol=1e-3):
+    """Ids exact per frame, corners within ``tol`` px (bit for bit if
+    exact)."""
     if len(got) != len(want):
         raise RuntimeError(f"{label} {what}: {len(got)} frames against {len(want)}")
     for f, (g, w) in enumerate(zip(got, want)):
@@ -319,7 +406,7 @@ def same_detections(got, want, label, what, exact=False):
             raise RuntimeError(f"{label} {what}: frame {f} ids differ: {set(g) ^ set(w)}")
         for t in g:
             err = float(np.abs(g[t] - w[t]).max())
-            if not (err == 0 if exact else err < 1e-3):
+            if not (err == 0 if exact else err < tol):
                 raise RuntimeError(f"{label} {what}: frame {f} tag {t} corner diff {err} px")
 
 
@@ -350,25 +437,28 @@ def recall_gate(tracked, cold, cold_every, label):
 
 def device_busy_share(torch, fn):
     """Run fn under torch.profiler: (device busy seconds from the CUDA
-    kernel and copy events, wall seconds of the profiled run)."""
+    kernel and copy events, wall seconds of the profiled run, names of the
+    CUDA kernels launched).  Reads the profiler's raw events: building its
+    per-op event objects (``prof.events()``) takes tens of microseconds an
+    op, seconds per run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = sync_time(torch, fn)
-    busy_us = sum(
-        e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA
-    )
-    return busy_us / 1e6, wall
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    busy_ns = sum(e.duration_ns() for e in events)
+    kernels = [e.name() for e in events if not e.name().startswith(("Memcpy", "Memset"))]
+    return busy_ns / 1e9, wall, kernels
 
 
 def run_phase(size, n_frames, card):
     import torch
 
     from ccrs_tpu_torch.board import create_default_6x6_board
-    from ccrs_tpu_torch.calib import calib_camera
     from ccrs_tpu_torch.calib.pipeline import calibrate_camera_with_retries
-    from ccrs_tpu_torch.detect import TagDetector, get_family
+    from ccrs_tpu_torch.detect import TagDetector, get_family, sample
     from ccrs_tpu_torch.models import GenericModel, zeros_like_model
     from ccrs_tpu_torch.testdata import render_frames_device, smooth_sequence_poses
     from ccrs_tpu_torch.types import CalibParams
@@ -402,21 +492,7 @@ def run_phase(size, n_frames, card):
 
     # interchange gate: a float64 re-solve on the CPU from the card's result
     # must land on the same optimum
-    t1 = time.perf_counter()
-    cpu_res = calib_camera(
-        board, batch, model, xy_same_focal=False, disabled_distortions=0,
-        fixed_focal=False, device="cpu",
-    )
-    if cpu_res is None:
-        raise RuntimeError(f"{tag} CPU float64 re-solve failed")
-    rms_card = rms_of(board, batch, model, rtvecs)
-    drift = abs(rms_card - rms_of(board, batch, *cpu_res))
-    print(
-        f"{tag} CPU float64 re-solve: |rms_card - rms_cpu| = {drift:.3e} px "
-        f"({time.perf_counter() - t1:.1f} s)"
-    )
-    if not (drift < 1e-6):
-        raise RuntimeError(f"{tag} float64 interchange drift {drift:.3e} px")
+    rms_card = cpu_resolve_gate(board, batch, model, rtvecs, tag)
 
     # speculation changes timing, never results: the cold ladder (no warm
     # start, a generator with the same seed) on the same batch
@@ -440,22 +516,28 @@ def run_phase(size, n_frames, card):
 
     # the card against the CPU: the cold detector on a few frames, and the
     # tracked detector on the first 48 frames (ids, corners and stats)
+    # (the CPU runs the card's sampling branch, so both sides compute the
+    # same formulation)
     few = list(range(0, n_frames, max(1, n_frames // 4)))[:4]
-    cpu_cold = TagDetector("t36h11", track=False, device="cpu").detect_batch(
-        None, board, dev_images=frames[few].cpu()
-    )
+    branch = card_branch()
+    with sample.matmul_branch(branch):
+        cpu_cold = TagDetector("t36h11", track=False, device="cpu").detect_batch(
+            None, board, dev_images=frames[few].cpu()
+        )
     same_detections([cold[f] for f in few], cpu_cold, tag, "cold card vs CPU")
     n48 = min(48, n_frames)
     trk_card, trk_cpu = TagDetector("t36h11", device="cuda"), TagDetector("t36h11", device="cpu")
     got = trk_card.detect_batch(None, board, dev_images=frames[:n48])
     t1 = time.perf_counter()
-    want = trk_cpu.detect_batch(None, board, dev_images=frames[:n48].cpu())
+    with sample.matmul_branch(branch):
+        want = trk_cpu.detect_batch(None, board, dev_images=frames[:n48].cpu())
     same_detections(got, want, tag, "tracked card vs CPU")
     if trk_card.stats != trk_cpu.stats:
         raise RuntimeError(f"{tag} tracked stats differ: card {trk_card.stats} cpu {trk_cpu.stats}")
     print(
-        f"{tag} card decode matches the CPU path: cold on frames {few}, tracked on "
-        f"frames 0..{n48 - 1} with equal stats ({time.perf_counter() - t1:.1f} s on the CPU)"
+        f"{tag} card decode matches the CPU path ({branch_name(branch)} branch on both): "
+        f"cold on frames {few}, tracked on frames 0..{n48 - 1} with equal stats "
+        f"({time.perf_counter() - t1:.1f} s on the CPU)"
     )
 
     # warm runs in this process (first-call set-up paid): the default
@@ -476,7 +558,7 @@ def run_phase(size, n_frames, card):
     )
     if size == 512:
         # once more under torch.profiler: the device's busy share
-        busy, wall = device_busy_share(
+        busy, wall, _ = device_busy_share(
             torch, lambda: launches.append(
                 main_path(size, n_frames, frames, board, card, f"[{size} profiled] ({card})")["launches"]
             )
@@ -1205,7 +1287,7 @@ def run_pipeline_phase(card, frames512, cli_frames, board):
                 peak_mib=torch.cuda.max_memory_allocated() / 2**20,
                 peak_above_input_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
             ))
-        b, w = device_busy_share(torch, lambda: pipelined(seqs))
+        b, w, _ = device_busy_share(torch, lambda: pipelined(seqs))
         busy = dict(busy_s=b, wall_s=w, share=b / w if b > 0 else None)
         entry = dict(dataset=label, plan=plans, frames=len(ref),
                      tags=sum(len(r) for r in ref), busy_pipelined=busy)
@@ -1682,6 +1764,407 @@ def run_bench_phase(card):
     return lines, launches
 
 
+@contextlib.contextmanager
+def record_sampling():
+    """Record the first call of each of the four ``detect/sample.py``
+    functions and of the dense decode core (arguments and result), where
+    the detector and the wave step reach them; the calls still run."""
+    from ccrs_tpu_torch.detect import decode, sample
+    from ccrs_tpu_torch.detect import track as track_mod
+
+    seen = {}
+    patched = []
+
+    def wrap(module, name):
+        real = getattr(module, name)
+
+        def recorded(*args, **kwargs):
+            out = real(*args, **kwargs)
+            seen.setdefault(name, (args, kwargs, out))
+            return out
+
+        patched.append((module, name, real))
+        setattr(module, name, recorded)
+
+    for name in SAMPLING_FUNCS:
+        wrap(sample, name)
+        if hasattr(track_mod, name):
+            wrap(track_mod, name)
+    wrap(decode, "_decode_core_dense")
+    wrap(track_mod, "_decode_core_dense")
+    try:
+        yield seen
+    finally:
+        for module, name, real in reversed(patched):
+            setattr(module, name, real)
+
+
+def branch_detections(got, want, tag, truth=None):
+    """The matmul branch's detections (``got``) against the gather
+    branch's: ids equal in every frame, at least ``BRANCH_CORNER_SHARE`` of
+    the common corners within ``BRANCH_CORNER_TOL`` px and all within
+    ``BRANCH_CORNER_MAX`` px.  ``truth(f)``, where given, is frame f's
+    projected board corners (N, 2): each corner beyond the tolerance is
+    printed with its distance to the nearest true corner in both branches.
+    Returns the counts and "failed" (None or why)."""
+    diffs, id_frames, worst, apart = [], [], (0.0, None, None), []
+    for f, (g, w) in enumerate(zip(got, want)):
+        if sorted(g) != sorted(w):
+            id_frames.append((f, sorted(set(g) ^ set(w))))
+        for t in set(g) & set(w):
+            gt_, wt = np.asarray(g[t]), np.asarray(w[t])
+            d = np.abs(gt_ - wt).max(axis=1)
+            diffs.append(d)
+            if d.max() > worst[0]:
+                worst = (float(d.max()), f, int(t))
+            if truth is not None and d.max() >= BRANCH_CORNER_TOL:
+                p2d = truth(f)
+                k = int(d.argmax())
+                off = [float(np.sqrt(((c[k] - p2d) ** 2).sum(-1)).min()) for c in (gt_, wt)]
+                apart.append(dict(frame=f, tag=int(t), diff_px=float(d[k]),
+                                  matmul_off_truth_px=off[0], gather_off_truth_px=off[1]))
+    d = np.concatenate(diffs) if diffs else np.zeros(0)
+    within = float((d < BRANCH_CORNER_TOL).mean()) if d.size else 1.0
+    out = dict(frames=len(got), corners=int(d.size), within_tol_share=within,
+               over_tol=int((d >= BRANCH_CORNER_TOL).sum()), max_px=worst[0],
+               worst_frame_tag=worst[1:], frames_with_other_ids=len(id_frames),
+               other_ids=id_frames[:5], apart_vs_truth=apart[:20])
+    print(f"{tag} matmul against gather branch: {out['corners']} common corners, "
+          f"{out['over_tol']} beyond {BRANCH_CORNER_TOL} px ({1 - within:.4%}), max "
+          f"{worst[0]:.3e} px (frame, tag {worst[1:]}); frames whose ids differ: "
+          f"{len(id_frames)} {id_frames[:5]}")
+    for a in apart[:20]:
+        print(f"{tag}   frame {a['frame']} tag {a['tag']}: branches {a['diff_px']:.3e} px apart; "
+              f"nearest true corner {a['matmul_off_truth_px']:.3f} px (matmul), "
+              f"{a['gather_off_truth_px']:.3f} px (gather)")
+    why = []
+    if id_frames:
+        why.append(f"ids differ in {len(id_frames)} frames")
+    if len(got) != len(want):
+        why.append(f"{len(got)} frames against {len(want)}")
+    if within < BRANCH_CORNER_SHARE or worst[0] >= BRANCH_CORNER_MAX:
+        why.append(f"corners: {within:.4%} within {BRANCH_CORNER_TOL} px, max {worst[0]:.3e}")
+    out["failed"] = f"{tag}: " + ", ".join(why) if why else None
+    return out
+
+
+def tol_excess(got, want, rtol, atol):
+    """(max |got - want|, max of |got - want| - atol - rtol |want|): the
+    comparison holds where the second is <= 0."""
+    d = (got - want).abs()
+    return float(d.max()) if d.numel() else 0.0, \
+        float((d - atol - rtol * want.abs()).max()) if d.numel() else -1.0
+
+
+def check_sampling_functions(torch, seen, label, card):
+    """The four functions on the recorded inputs, on the card through both
+    branches (``SAMPLING_BRANCH_TOL``), and the first ``N_SAMPLING_CPU``
+    frames or rows through the matmul branch on the CPU against the card's
+    (``SAMPLING_CPU_TOL``).  Refined corners are held where the recorded
+    decode found a valid tag; the largest difference over every corner is
+    printed beside it."""
+    from ccrs_tpu_torch.detect import sample
+
+    tag = f"[sampling {label}] ({card})"
+    dec_args, _, dec_out = seen["_decode_core_dense"]
+    valid = dec_out["valid"]  # (B, M) quads the recorded decode accepted
+    rec = {}
+    for name in SAMPLING_FUNCS:
+        args, kwargs, _ = seen[name]
+        fn = getattr(sample, name)
+        kw = {k: v for k, v in kwargs.items() if k != "use_matmul"}
+        mm = fn(*args, use_matmul=True, **kw)
+        ga = fn(*args, use_matmul=False, **kw)
+        n = N_SAMPLING_CPU
+        cpu = fn(*[a[:n].cpu() if torch.is_tensor(a) else a for a in args],
+                 use_matmul=True, **kw)
+        torch.cuda.synchronize()
+        mask = None
+        if name == "refine_corners_mm":
+            mask = valid.repeat_interleave(4, dim=1)  # (B, 4M) corners
+        r_b, a_b = SAMPLING_BRANCH_TOL[name]
+        r_c, a_c = SAMPLING_CPU_TOL[name]
+        err_all, _ = tol_excess(mm, ga, r_b, a_b)
+        sel = (lambda x: x[mask]) if mask is not None else (lambda x: x)
+        err_b, over_b = tol_excess(sel(mm), sel(ga), r_b, a_b)
+        mm_cpu = mm[:n].cpu()
+        sel_c = (lambda x: x[mask[:n].cpu()]) if mask is not None else (lambda x: x)
+        err_c, over_c = tol_excess(sel_c(cpu), sel_c(mm_cpu), r_c, a_c)
+        shape = "x".join(str(d) for d in args[0].shape)
+        what = (f" (corners of the {int(valid.sum())} decoded quads; every corner "
+                f"{err_all:.3e})" if mask is not None else "")
+        print(f"{tag} {name} on {shape}: matmul vs gather max diff {err_b:.3e}{what}, "
+              f"tolerance rtol {r_b} atol {a_b}; card vs CPU matmul on {n}: {err_c:.3e}, "
+              f"tolerance rtol {r_c} atol {a_c}")
+        if over_b > 0 or over_c > 0 or mm.shape != ga.shape or cpu.shape != mm_cpu.shape:
+            raise RuntimeError(f"{tag} {name}: the branches or the devices disagree")
+        rec[name] = dict(shape=shape, matmul_vs_gather=err_b, card_vs_cpu=err_c,
+                         every_corner=err_all if mask is not None else None)
+    # the matmul refine reads build_klt_maps' layout as it is: no kernel of
+    # its 12 steps copies the maps (or anything else)
+    args, kwargs, _ = seen["refine_corners_mm"]
+    for mm in (True, False):
+        _, _, names = device_busy_share(
+            torch, lambda: sample.refine_corners_mm(*args, use_matmul=mm))
+        copies = sum("direct_copy" in n for n in names)
+        rec["refine_corners_mm"][f"{branch_name(mm)}_kernels"] = len(names)
+        rec["refine_corners_mm"][f"{branch_name(mm)}_copy_kernels"] = copies
+        print(f"{tag} refine_corners_mm, {branch_name(mm)} branch: {len(names)} CUDA kernels in "
+              f"one call of {sample.ITERS} steps, {copies} of them copies (torch.profiler)")
+        if mm and copies:
+            raise RuntimeError(f"{tag} the matmul refine launched {copies} copy kernels")
+    return rec
+
+
+def saddle_check(torch, card):
+    """A checkerboard saddle at (31.3, 32.6) on the card: both branches
+    refine a 1.2 / -1.4 px off start to within 0.05 px."""
+    from ccrs_tpu_torch.detect import sample
+
+    H = W = 64
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    img = 127.5 + 127.5 * np.tanh(0.9 * (xx - 31.3)) * np.tanh(0.9 * (yy - 32.6))
+    frames = torch.as_tensor(img[None], device="cuda")
+    start = torch.tensor([[[31.3 + 1.2, 32.6 - 1.4]]], device="cuda")
+    out = {}
+    for mm in (True, False):
+        maps = sample.build_klt_maps(frames, use_matmul=mm)
+        got = sample.refine_corners_mm(maps, start, use_matmul=mm)[0, 0].cpu().numpy()
+        out[branch_name(mm)] = float(np.abs(got - np.array([31.3, 32.6])).max())
+    print(f"[sampling saddle] ({card}) refined saddle off the truth by {out} px (limit 0.05)")
+    if max(out.values()) >= 0.05:
+        raise RuntimeError(f"[sampling saddle] ({card}) a branch missed the saddle: {out}")
+    return out
+
+
+def batch_check(torch, det, frames, board, card):
+    """The first 64 frames through the cold detector in one call, and in
+    calls of 32 and of 8, in each branch: do a frame's corners depend on
+    the frames it is batched with?  The gather branch must not (the mesh
+    phase's sharded detection relies on it); the matmul branch's products
+    may round otherwise when cuBLAS picks another algorithm for another
+    shape, and its difference is printed."""
+    from ccrs_tpu_torch.detect import sample
+
+    tag = f"[sampling batch] ({card})"
+    out = {}
+    for mm in (True, False):
+        ids, diff = True, 0.0
+        with sample.matmul_branch(mm):
+            whole = det.detect_batch(None, board, dev_images=frames[:64].contiguous())
+            for n in (32, 8):
+                parts = [r for lo in range(0, 64, n) for r in det.detect_batch(
+                    None, board, dev_images=frames[lo : lo + n].contiguous())]
+                ids &= all(sorted(a) == sorted(b) for a, b in zip(whole, parts))
+                diff = max([diff] + [float(np.abs(a[t] - b[t]).max())
+                                     for a, b in zip(whole, parts) for t in set(a) & set(b)])
+        out[branch_name(mm)] = dict(same_ids=ids, max_diff_px=diff)
+        print(f"{tag} {branch_name(mm)} branch: 64 frames in one call against calls of 32 "
+              f"and of 8: ids equal {ids}, corners max diff {diff:.3e} px")
+    if not (out["gather"]["same_ids"] and out["gather"]["max_diff_px"] == 0.0):
+        raise RuntimeError(f"{tag} the gather branch's detections depend on the batch")
+    return out
+
+
+def run_sampling_phase(card, frames512, frames1024, cli_frames, board):
+    """``detect/sample.py``'s two branches on the card: (a) the four
+    functions on one 64-frame chunk of the 512 frames with their quadproc
+    quads and on one wave of the tracked 512 path, the matmul branch
+    against the gather branch and against the CPU's matmul branch, and the
+    synthetic saddle; (b) the cold detector and the tracked main path under
+    each branch: ids equal, corners within ``BRANCH_CORNER_TOL`` (a
+    ``BRANCH_CORNER_SHARE``; all within ``BRANCH_CORNER_MAX``), the 512
+    calibration gates for both; (c) per branch, in turns, the best of 3
+    warm walls, the ``detect/*`` stages, busy share, kernel launches and
+    device time per cold chunk and per wave, peak memory above the frames,
+    at 512, 1024 and on the cli frames.  Returns (numbers, threshold
+    launches of its detections)."""
+    import torch
+
+    from ccrs_tpu_torch.detect import TagDetector, sample, tracked
+    from ccrs_tpu_torch.detect import track as track_mod
+    from ccrs_tpu_torch.models import GenericModel
+    from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
+    from ccrs_tpu_torch.testdata import gt_corners, smooth_sequence_poses
+    from ccrs_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    default_mm = card_branch()
+    result = {"default": branch_name(default_mm), "functions": {}}
+    launches = 0
+
+    # (a) the four functions at the main path's shapes
+    def first_wave(frames):
+        waves = []
+        real = tracked.wave_advance
+        tracked.wave_advance = lambda *a: (waves.append(a) if not waves else None) or real(*a)
+        try:
+            TagDetector("t36h11", device="cuda").detect_batch(None, board, dev_images=frames)
+        finally:
+            tracked.wave_advance = real
+        return waves[0]
+
+    cold = TagDetector("t36h11", track=False, device="cuda")
+    chunk = frames512[:64].contiguous()
+    with record_sampling() as seen:
+        cold.detect_batch(None, board, dev_images=chunk)
+    result["functions"]["chunk 64x512x512"] = check_sampling_functions(
+        torch, seen, "chunk 64x512x512", card)
+    del seen
+    wave512 = first_wave(frames512)
+    with record_sampling() as seen:
+        track_mod.wave_advance(*wave512)
+    rows = wave512[1].shape[0]
+    result["functions"][f"wave {rows}x512x512"] = check_sampling_functions(
+        torch, seen, f"wave {rows}x512x512", card)
+    del seen
+    result["saddle_px"] = saddle_check(torch, card)
+    result["batch_independence"] = batch_check(torch, cold, frames512, board, card)
+    torch.cuda.empty_cache()
+    print(f"[sampling] ({card}) function checks took {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) and (c): both branches in turns, per dataset
+    s2 = [p * 2 for p in GT_512[:4]] + GT_512[4:]
+    datasets = [
+        ("534x512x512", [frames512], 512, GenericModel("eucm", GT_512, 512, 512)),
+        ("128x1024x1024", [frames1024], 1024, GenericModel("eucm", s2, 1024, 1024)),
+        (f"2 cameras x {N_CLI}x480x752", [torch.as_tensor(f).cuda() for f in cli_frames],
+         None, None),
+    ]
+
+    def truth_of(seqs, gt):
+        """Frame f's projected board corners (the 512 and 1024 phases'
+        poses, run_phase's seed), or None for the cli frames."""
+        if gt is None:
+            return None
+        poses = smooth_sequence_poses(seqs[0].shape[0], board, seed=SEED)
+        return lambda f: gt_corners(gt, board, poses[f][:3], poses[f][3:])[0]
+
+    order = (True, False, False, True, True, False)
+    decide, failed, beyond = {}, [], {True: [], False: []}
+    result["datasets"] = []
+    for label, seqs, size, gt in datasets:
+        entry = dict(dataset=label)
+        kinds = [("cold", None)] + ([("tracked main path", size)] if size else [])
+        for kind, sz in kinds:
+            tag = f"[sampling {label}, {kind}] ({card})"
+            runs = {True: [], False: []}
+            for mm in order:
+                with sample.matmul_branch(mm):
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    if kind == "cold":
+                        profiling.reset()
+                        threshold_front_cuda.launches = 0
+                        dets, wall = sync_time(torch, lambda: [
+                            r for seq in seqs
+                            for r in cold.detect_batch(None, board, dev_images=seq)])
+                        run = dict(dets=dets, t_total=wall, stages=profiling.totals(),
+                                   launches=threshold_front_cuda.launches)
+                    else:
+                        run = main_path(sz, seqs[0].shape[0], seqs[0], board, card,
+                                        f"{tag} {branch_name(mm)}")
+                    torch.cuda.synchronize()
+                launches += run["launches"]
+                run["peak_above_input_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+                if not runs[mm] and kind != "cold":
+                    # (b) the 512 phase's calibration gates, for each branch
+                    focal = abs(run["model"].params[0] - gt.params[0]) / gt.params[0]
+                    print(f"{tag} {branch_name(mm)}: focal err {focal:.4%}, median "
+                          f"{run['median']:.4f} px")
+                    if not (focal < 0.01 and run["median"] < 0.3):
+                        failed.append(f"{tag} {branch_name(mm)}: focal {focal:.2%} or "
+                                      f"median {run['median']:.4f} px off")
+                    try:
+                        cpu_resolve_gate(board, run["batch"], run["model"], run["rtvecs"],
+                                         f"{tag} {branch_name(mm)}")
+                    except RuntimeError as e:
+                        failed.append(str(e))
+                runs[mm].append(run)
+            # (b) the two branches detect the same tags: held at 512, printed
+            # for the other datasets
+            k_cmp = branch_detections(runs[True][0]["dets"], runs[False][0]["dets"], tag,
+                                      truth_of(seqs, gt))
+            if k_cmp["failed"] and size == 512:
+                failed.append(k_cmp["failed"])
+            spread = max(max(r["t_total"] for r in rs) - min(r["t_total"] for r in rs)
+                         for rs in runs.values())
+            k = {"matmul_vs_gather": {n: v for n, v in k_cmp.items() if n != "failed"}}
+            for mm, rs in runs.items():
+                best = min(rs, key=lambda r: r["t_total"])
+                k[branch_name(mm)] = dict(
+                    walls_s=[r["t_total"] for r in rs], best_s=best["t_total"],
+                    stages_s={n: v for n, v in best["stages"].items() if n.startswith("detect/")},
+                    peak_above_input_mib=max(r["peak_above_input_mib"] for r in rs),
+                    stats=best.get("stats"))
+                print(f"{tag} {branch_name(mm)}: walls "
+                      f"{', '.join(f'{r['t_total']:.3f}' for r in rs)} s, best "
+                      f"{best['t_total']:.3f} s; peak above the frames "
+                      f"{k[branch_name(mm)]['peak_above_input_mib']:.1f} MiB")
+                for n, v in sorted(k[branch_name(mm)]["stages_s"].items(), key=lambda kv: -kv[1]):
+                    print(f"{tag}   {branch_name(mm)} {n:20s} {v:8.4f} s")
+            # device busy share, one profiled run per branch (at 1024 of the
+            # cold detector only)
+            for mm in (True, False) if kind == "cold" or size == 512 else ():
+                with sample.matmul_branch(mm):
+                    if kind == "cold":
+                        b, w, _ = device_busy_share(torch, lambda: [
+                            cold.detect_batch(None, board, dev_images=seq) for seq in seqs])
+                    else:
+                        b, w, _ = device_busy_share(torch, lambda: main_path(
+                            sz, seqs[0].shape[0], seqs[0], board, card, f"{tag} profiled"))
+                k[branch_name(mm)]["busy"] = dict(busy_s=b, wall_s=w, share=b / w if b > 0 else None)
+                print(f"{tag} {branch_name(mm)} under torch.profiler: device busy {b:.3f} s of "
+                      f"{w:.3f} s wall")
+            k["spread_s"] = spread
+            entry[kind] = k
+            print(f"{tag} best matmul {k['matmul']['best_s']:.3f} s, gather "
+                  f"{k['gather']['best_s']:.3f} s, spread between runs {spread:.3f} s")
+            gap = k["matmul"]["best_s"] - k["gather"]["best_s"]
+            if abs(gap) > spread:
+                beyond[gap > 0].append(f"{label} {kind}")
+            if (label, kind) in (("534x512x512", "cold"), ("534x512x512", "tracked main path")):
+                decide[kind] = gap > spread
+
+        # launches and device time per cold chunk and per wave, each branch
+        one = seqs[0][:64].contiguous()
+        wave = (wave512 if size == 512 else first_wave(seqs[0])) if size else None
+        for mm in (True, False):
+            with sample.matmul_branch(mm):
+                cold.detect_batch(None, board, dev_images=one)  # warm
+                dev_chunk, _, k_chunk = device_busy_share(torch, lambda: cold.detect_batch(
+                    None, board, dev_images=one))
+                per = dict(chunk_kernels=len(k_chunk), chunk_device_s=dev_chunk)
+                if wave is not None:
+                    track_mod.wave_advance(*wave)
+                    dev_wave, _, k_wave = device_busy_share(
+                        torch, lambda: track_mod.wave_advance(*wave))
+                    per.update(wave_rows=int(wave[1].shape[0]), wave_kernels=len(k_wave),
+                               wave_device_s=dev_wave)
+            entry.setdefault("per_call", {})[branch_name(mm)] = per
+            print(f"[sampling {label}] ({card}) {branch_name(mm)}: {per} (torch.profiler; a "
+                  f"cold chunk of {one.shape[0]} frames with its assist"
+                  f"{', one wave' if wave is not None else ''})")
+        result["datasets"].append(entry)
+        torch.cuda.empty_cache()
+        print(f"[sampling {label}] ({card}) done at {time.perf_counter() - t_phase:.1f} s")
+
+    slower = [kind for kind, s_ in decide.items() if s_]
+    rule = branch_name(not slower)
+    result.update(rule_takes=rule, matmul_slower_beyond_spread=beyond[True],
+                  matmul_faster_beyond_spread=beyond[False])
+    print(f"[sampling default] ({card}) the card takes the {branch_name(default_mm)} branch by "
+          f"default; this run's rule (keep gather if matmul's best of 3 is slower by more than "
+          f"the spread between runs on the tracked 512 main path or the 534x512x512 cold "
+          f"detector) takes {rule}" + (f": matmul slower on {slower}" if slower else "")
+          + f"; matmul slower beyond the spread on {beyond[True]}, faster beyond it on "
+          f"{beyond[False]}")
+    if failed:  # after the measurements, so that a failed run still shows them
+        raise RuntimeError("sampling phase gates failed: " + "; ".join(failed))
+    return result, launches
+
+
 def main() -> int:
     import torch
 
@@ -1724,10 +2207,9 @@ def main() -> int:
     frames512, scale, launches512, run512 = run_phase(512, N_512, card)
     k512 = check_kernel(frames512, scale, card, f"{N_512}x512x512")
     ccl = [run_ccl_phase(card, frames512[: N_CCL[512]].contiguous(), scale, "512 phase")]
-    frames, scale, launches1024, _ = run_phase(1024, N_1024, card)
-    k1024 = check_kernel(frames, scale, card, f"{N_1024}x1024x1024")
-    ccl.append(run_ccl_phase(card, frames[: N_CCL[1024]].contiguous(), scale, "1024 phase"))
-    del frames
+    frames1024, scale, launches1024, _ = run_phase(1024, N_1024, card)
+    k1024 = check_kernel(frames1024, scale, card, f"{N_1024}x1024x1024")
+    ccl.append(run_ccl_phase(card, frames1024[: N_CCL[1024]].contiguous(), scale, "1024 phase"))
     cli_frames, launches_cli, joint, fresh = run_cli_phase(card)
     if launches_cli <= 0:
         raise RuntimeError("the CLI run never launched the threshold kernel")
@@ -1741,7 +2223,9 @@ def main() -> int:
     launches_mesh = run_mesh_phase(card, frames512, run512, create_default_6x6_board(), joint)
     pipeline, launches_pipeline = run_pipeline_phase(card, frames512, cli_frames,
                                                      create_default_6x6_board())
-    del frames512
+    sampling, launches_sampling = run_sampling_phase(card, frames512, frames1024, cli_frames,
+                                                     create_default_6x6_board())
+    del frames512, frames1024
     run_undistort_phase(card, cli_frames[0][0])
     launches_colour = run_colour_phase(card, cli_frames[0][:N_COLOUR])
     run_tools_phase(card)
@@ -1756,20 +2240,23 @@ def main() -> int:
     print(json.dumps({"fresh": fresh, "rig": rig, "card": card}))
     print(json.dumps({"bench": bench, "card": card}))
     print(json.dumps({"pipeline": pipeline, "card": card}))
+    print(json.dumps({"sampling": sampling, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "threshold_front",
         "route": "cuda",
         "source": "ccrs_tpu_torch/csrc/threshold.cu",
         "replaces": "ccrs_tpu/ops/threshold_pallas.py:35",
         "launches": (launches512 + launches1024 + launches_cli + launches_mesh
-                     + launches_pipeline + launches_colour + launches_fresh
-                     + launches_bench),
+                     + launches_pipeline + launches_sampling + launches_colour
+                     + launches_fresh + launches_bench),
         "launches_512": launches512,
         "launches_1024": launches1024,
         "launches_cli": launches_cli,
         "launches_mesh": launches_mesh,
         # the pipeline phase's pipelined cold detections (warm runs included)
         "launches_pipeline": launches_pipeline,
+        # the sampling phase's detections, both branches
+        "launches_sampling": launches_sampling,
         "launches_colour": launches_colour,
         # the subprocess CLI runs' own launches, and their warm-up threads'
         # (each child prints its library's count and, of that, what the

@@ -8,7 +8,10 @@ the card when one is visible) against the unsharded ones, the warm-up
 solvers on the card against the CPU, and the cold detector's chunk
 pipeline against the same chunks detected one per call, bit for bit, also
 with the stream held back by sleep kernels, and its peak memory flat in
-the batch size.  They skip without a CUDA device.
+the batch size; the sampling branch's constants made once per device, and
+a 64-frame chunk through the matmul branch without a synchronizing call.
+The card-vs-CPU comparisons run the CPU side in the card's sampling branch
+(``sample.matmul_branch``).  They skip without a CUDA device.
 
 This file imports neither jax nor ``ccrs_tpu``, so it also runs on a
 machine with the card and no JAX (``tests/conftest.py`` imports jax, hence
@@ -22,7 +25,7 @@ import pytest
 import torch
 
 from ccrs_tpu_torch.board import create_default_6x6_board
-from ccrs_tpu_torch.detect import TagDetector, get_family
+from ccrs_tpu_torch.detect import TagDetector, get_family, sample
 from ccrs_tpu_torch.detect.threshold import threshold_front, threshold_front_plain
 from ccrs_tpu_torch.models import GenericModel
 from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
@@ -151,11 +154,19 @@ def test_kernel_rejects_what_it_does_not_take(card):
         threshold_front_cuda(x, scale=3)
 
 
+def _card_branch(card):
+    """The sampling branch the card takes by default: the CPU side of a
+    card-vs-CPU comparison runs it too (``sample.matmul_branch``)."""
+    return sample._use_mm(None, torch.empty(0, device=card))
+
+
 @pytest.mark.cuda
 def test_detector_on_card_matches_cpu(card):
     frames = _frames(512, 6, noise=1.5)
     board = create_default_6x6_board()
-    cpu = TagDetector("t36h11", track=False, device="cpu").detect_batch(None, board, dev_images=frames)
+    with sample.matmul_branch(_card_branch(card)):
+        cpu = TagDetector("t36h11", track=False, device="cpu").detect_batch(
+            None, board, dev_images=frames)
     gpu = TagDetector("t36h11", track=False, device=card).detect_batch(
         None, board, dev_images=frames.to(card)
     )
@@ -168,12 +179,14 @@ def test_detector_on_card_matches_cpu(card):
 @pytest.mark.cuda
 def test_tracked_detector_on_card_matches_cpu(card):
     """48 frames through the default (tracked) detector on the card and on
-    the CPU: ids exact per frame, corners within 1e-3 px, equal stats; the
-    threshold kernel launches inside the tracked run."""
+    the CPU (in the card's sampling branch): ids exact per frame, corners
+    within 1e-3 px, equal stats; the threshold kernel launches inside the
+    tracked run."""
     frames = _frames(512, 48, noise=1.5)
     board = create_default_6x6_board()
     cpu_det, gpu_det = TagDetector("t36h11", device="cpu"), TagDetector("t36h11", device=card)
-    cpu = cpu_det.detect_batch(None, board, dev_images=frames)
+    with sample.matmul_branch(_card_branch(card)):
+        cpu = cpu_det.detect_batch(None, board, dev_images=frames)
     before = threshold_front_cuda.launches
     gpu = gpu_det.detect_batch(None, board, dev_images=frames.to(card))
     assert threshold_front_cuda.launches > before
@@ -581,3 +594,52 @@ def test_cold_pipeline_peak_memory_does_not_grow_with_the_batch(card):
         torch.cuda.synchronize()
         peak[n] = (torch.cuda.max_memory_allocated() - base) / 2**20
     assert peak[384] - peak[128] < 256, peak
+
+
+@pytest.mark.cuda
+def test_sampling_constants_made_once_per_device(card):
+    """The band matrices and pixel grids are made once per device: a
+    second pass of the same shapes through the four functions makes none."""
+    frames = _frames(512, 4, noise=1.5, device="cuda")
+    dev = frames.device
+    start = torch.full((4, 8, 2), 100.0, device=dev)
+
+    def one_pass():
+        sharp = sample.unsharp_mm(frames, use_matmul=True)
+        maps = sample.build_klt_maps(frames, use_matmul=True)
+        sample.refine_corners_mm(maps, start, use_matmul=True)
+        sample.sample_bilinear_mm(sharp, start[..., 0], start[..., 1], use_matmul=True)
+
+    one_pass()
+    made = (sample._band.cache_info().currsize, sample._grid.cache_info().currsize)
+    blur = sample._band(512, "blur", True, dev)
+    one_pass()
+    assert (sample._band.cache_info().currsize, sample._grid.cache_info().currsize) == made
+    assert sample._band(512, "blur", True, dev) is blur and blur.device == dev
+
+
+@pytest.mark.cuda
+def test_matmul_chunk_makes_no_synchronizing_call(card, monkeypatch):
+    """A 64-frame 512x512 chunk of the cold detector runs to its end under
+    ``set_sync_debug_mode("error")`` through the matmul branch (the second
+    chunk of its shape; its hat weights were built), and a blocking
+    ``.item()`` after it raises."""
+    frames = _frames(512, 64, noise=1.5, device="cuda")
+    board = create_default_6x6_board()
+    det = TagDetector("t36h11", track=False, device=card)
+    hats = []
+    real = sample._hat
+    monkeypatch.setattr(sample, "_hat", lambda *a: hats.append(1) or real(*a))
+    with sample.matmul_branch(True):
+        want = det.detect_batch(None, board, dev_images=frames)
+        torch.cuda.synchronize()
+        n_hats = len(hats)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = det.detect_batch(None, board, dev_images=frames)
+            with pytest.raises(RuntimeError, match="synchronizing"):
+                torch.ones(1, device=card).item()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert n_hats > 0 and len(hats) == 2 * n_hats
+    _same_bits(got, want)
