@@ -133,4 +133,6 @@ def prewarm_calibration(
             device=device, solver=solver,
         )
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+        # this thread's stream, not the device: a device-wide synchronize
+        # fails while another thread captures a CUDA graph (detect/graphs.py)
+        torch.cuda.current_stream(device).synchronize()

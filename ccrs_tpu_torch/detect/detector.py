@@ -24,16 +24,28 @@ Each step runs under a stage timer (``utils/profiling.py``):
 ``detect/threshold``, ``detect/quadproc``, ``detect/dispatch``,
 ``detect/decode`` and ``detect/assist``.  Uploads go through pinned
 memory without blocking; a read waits on the event recorded after its own
-copy, never on the whole stream.  Chunks take their natural size on every
-device (``chunk`` frames, the last one short).  The JAX package gives an
-accelerator ``chunk``-sized pieces plus ``cold_chunk``-sized tail pieces,
-padded, to bound its compiled shapes; eager torch compiles no shape, and
-the tail pieces only add per-chunk host work, so the port runs that plan
-(``_chunk_plan``, its last piece clipped: no padding frame) only under
-``CCRS_FORCE_CHUNK_PLAN``.  With a board, ``detect_batch`` takes
-the wave-tracking video fast path by default (detect/tracked.py;
-``track=False`` or ``CCRS_TRACK=0`` turns it off), whose anchors and
-audits run the cold pipeline on chosen frames.  ``detect`` on a single
+copy, never on the whole stream.
+
+On the card the refine + decode and the assist decode run as replayed CUDA
+graphs (``graphs.py``), the counterpart of the JAX package's one compiled
+executable per shape, keyed by the JAX shape discipline: the decode's quad
+count goes up the JAX ladder (``_quad_rung``, the sticky ``_mq``), and the
+chunks follow the JAX accelerator plan (``chunk``-sized pieces plus
+``cold_chunk``-sized tail pieces), so two frame counts serve every sweep.
+A tail piece's threshold and quad extraction run on its real frames only;
+its decode runs on the piece's full size, the last frame repeated as the
+JAX package pads it, and the padding results are dropped.  Two instances
+of each decode graph are used in turn (chunk k and k+1), so chunk k's
+assist still reads its own maps when chunk k+1's decode has run.  Eager
+(the CPU, or the card inside ``graphs.eager()``) keeps natural chunks
+(``chunk`` frames, the last one short) and decodes each chunk's own quad
+count; the JAX plan, its last piece clipped, runs there only under
+``CCRS_FORCE_CHUNK_PLAN``.  Padding changes no result bit: frames and quads
+never interact.
+
+With a board, ``detect_batch`` takes the wave-tracking video fast path by
+default (detect/tracked.py; ``track=False`` or ``CCRS_TRACK=0`` turns it
+off), whose anchors and audits run the cold pipeline on chosen frames.  ``detect`` on a single
 image wraps the batch path.
 
 Frame sharding (``shard=``, parallel/mesh.py): the batch is split into
@@ -52,7 +64,8 @@ import torch
 
 from ..parallel.mesh import FrameShards, mesh_for, shard_frames
 from ..utils.profiling import stage
-from .assist import assist_candidates, assist_merge
+from . import graphs
+from .assist import _BUCKET, assist_candidates, assist_merge
 from .decode import refine_decode_fused_dense
 from .families import TagFamily, get_family
 from .quads import MAX_QUADS, extract_quads_batch
@@ -110,12 +123,34 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
+def _quad_rung(need: int) -> int:
+    """Smallest rung of the JAX package's ~1.5x, 8-aligned quad-bucket
+    ladder (8, 16, 24, 40, 64, 96, 144, 216, ...) that fits ``need`` quads."""
+    m = 8
+    while m < need:
+        m = -(-m * 3 // 2 // 8) * 8
+    return m
+
+
+def _decode_graph(family, do_refine, images, quads, qvalid):
+    """The primary refine + decode, in the argument order ``graphs.get``
+    captures."""
+    return refine_decode_fused_dense(family, images, quads, qvalid, do_refine=do_refine)
+
+
+def _assist_graph(family, do_refine, sharp, maps, quads, qvalid):
+    """The assist decode, reading a primary decode's sharpened frames and
+    maps in place (the frames themselves are not read again)."""
+    return refine_decode_fused_dense(family, sharp, quads, qvalid, do_refine=do_refine,
+                                     sharp=sharp, maps=maps)
+
+
 def _chunk_plan(B: int, chunk: int, small: int, cpu: bool,
                 forced: int | None = None) -> list:
     """Chunk sizes covering a B-frame batch (``ccrs_tpu``'s plan, the same
-    values).  ``cpu`` (the natural plan, which the port runs on every
-    device): ``forced`` or ``chunk`` frames each, the last one short.
-    Otherwise the JAX accelerator plan (the port's under
+    values).  ``cpu`` (the natural plan, which the port runs eagerly):
+    ``forced`` or ``chunk`` frames each, the last one short.  Otherwise the
+    JAX accelerator plan (the port's with graphs, or eagerly under
     ``CCRS_FORCE_CHUNK_PLAN``): ``forced`` repeated, or ``chunk``-sized
     pieces plus ``small``-sized tail pieces; the sum may pass B
     (``_chunk_spans`` clips the last piece)."""
@@ -302,6 +337,15 @@ class TagDetector:
         #: threshold kernel launches of the last ``prewarm`` call, counted
         #: at the launch site on the thread that ran it
         self.prewarm_launches = 0
+        # the JAX package's sticky shape buckets, kept on every device;
+        # only graphs run at them (eager runs each call's own sizes)
+        #: decode quad bucket, a rung of ``_quad_rung``'s ladder (grow-only)
+        self._mq = 8
+        #: wave rows of the main sweep and of the repair resweeps (grow-only)
+        self._wave_rows = 0
+        self._wave_rows_small = 8
+        #: (device, (H, W), dtype) -> the chunk sizes decoded there with graphs
+        self._graph_sizes: dict = {}
 
     def _shard_frames(self, frames):
         """Split a (B, ...) tensor over the mesh when sharding is on (see
@@ -339,20 +383,27 @@ class TagDetector:
         size, so that the first real chunk does not: the build or load of
         the three native libraries (the CUDA kernels, the quad extractor,
         the PNG unfilter), the CUDA context, and the first launch of every
-        device operation the pipeline uses (each loads its kernel once per
-        process).  Meant for a background thread while the host decodes
-        images; safe to skip.
+        device operation the pipeline uses.  Meant for a background thread
+        while the host decodes images; safe to skip.
 
-        Runs, on ``self.device``, through the cold pipeline's own copies
-        (pinned uploads, host copies read by their events): one upload, one
-        ``threshold_front`` launch at the scale this frame size takes, the
-        bitmap copy and the native quad extraction, one
-        ``refine_decode_fused_dense`` and the copy of its outputs, with a
-        board the assist decode that reuses the first pass's sharpened
-        frames and maps, and with tracking one ``wave_advance``.  The dummy
-        batch is two frames of a fixed pattern: eager torch builds no graph
-        per shape, so the cost does not depend on the batch size and
-        ``n_frames`` (kept for the JAX signature) sizes nothing.
+        Seeds the sticky shape buckets as the JAX package's warm-up does:
+        with a board ``_mq`` to the rung of ``board.n_tags + 4`` quads, with
+        tracking ``_wave_rows`` to the row bucket that ``n_frames`` implies,
+        so the first detection captures its graphs at those shapes.  Then,
+        on ``self.device``, through the cold pipeline's own copies: one
+        upload, one ``threshold_front`` launch at the scale this frame size
+        takes, the bitmap copy and the native quad extraction, one eager
+        ``refine_decode_fused_dense`` of two dummy frames and the copy of its
+        outputs, with a board the assist decode that reuses its sharpened
+        frames and maps, and with tracking one ``wave_advance``.
+
+        It captures no CUDA graph, unlike the JAX package's warm-up, which
+        compiles its executables ahead: a capture on this thread would make
+        a device-wide ``torch.cuda.synchronize()`` on any other thread fail
+        for as long as it lasts (CUDA forbids synchronizing a device while
+        one of its streams captures), and callers render or upload frames
+        and synchronize beside the warm-up (``bench_torch.py`` does).  The
+        detecting thread captures each graph at its first use.
 
         Leaves ``stats``, ``debug``, ``on_provisional`` and the tracking
         carry as they were and draws from no random generator.  The
@@ -363,12 +414,19 @@ class TagDetector:
         """
         from ..ops.threshold_cuda import thread_launches
         from ..pngio import _load as load_png_library
-        from .track import carry_to_device, init_wave_carry, wave_advance
 
-        del n_frames
         dev = self.device
         launched = thread_launches()
         load_png_library()
+        tracked = board is not None and self.track and self.refine
+        if board is not None:
+            self._mq = max(self._mq, _quad_rung(board.n_tags + 4))
+        if tracked:
+            R = 8
+            if n_frames is not None and n_frames >= 4:
+                starts = _anchor_starts(n_frames, max(self.cold_every, 4), 0)
+                R = -(-2 * max(len(starts) - 1, 1) // 8) * 8
+            self._wave_rows = max(R, self._wave_rows)
         scale = 2 if max(height, width) >= self.pyramid_min_side else 1
         # a light frame with dark squares: blobs for the quad extractor
         B, side = 2, max(8, min(height, width) // 8)
@@ -384,40 +442,52 @@ class TagDetector:
         packed = _Fetch(threshold_front(part, scale)).get()
         b1 = np.unpackbits(packed, axis=-1, count=sW + ((-sW) % wmul))[:, :sH, :sW]
         self._extract_quads(b1, board, scale)
+        self._prewarm_calls(part, xs, ys, side, board, tracked)
+        if dev.type == "cuda":
+            # this thread's stream, not the device: a device-wide
+            # synchronize fails while another thread captures a graph
+            torch.cuda.current_stream(dev).synchronize()
+        self.prewarm_launches = thread_launches() - launched
+
+    def _prewarm_calls(self, part, xs, ys, side, board, tracked) -> None:
+        """``prewarm``'s eager device calls on the two dummy frames."""
+        from .track import carry_to_device, init_wave_carry, wave_advance
+
+        dev, B = part.device, part.shape[0]
         # the squares themselves as the quad buffer: every slot valid
         tl = np.stack(np.meshgrid(xs, ys), -1).reshape(-1, 2).astype(np.float32)
         n_quads = len(tl) if board is None else min(len(tl), board.n_tags + 4)
         offs = np.array([[0, 0], [side, 0], [side, side], [0, side]], np.float32)
         quads = np.broadcast_to(tl[:n_quads, None] + offs, (B, n_quads, 4, 2)).copy()
-        counts = np.full(B, n_quads, np.int32)
-        out, fetches = self._dispatch_decode(part, quads, counts)
-        self._collect_results(_read_all(fetches), B)
-        if board is not None:
-            n_assist = min(n_quads, board.n_tags)
-            aout = refine_decode_fused_dense(
-                self.family, part, _to_device(quads[:, :n_assist], dev),
-                _to_device(np.ones((B, n_assist), bool), dev),
-                do_refine=self.refine, sharp=out["sharp"], maps=out["maps"],
+        out = refine_decode_fused_dense(
+            self.family, part, _to_device(quads, dev),
+            _to_device(np.ones((B, n_quads), bool), dev), do_refine=self.refine,
+        )
+        self._collect_results(_read_all(_fetch_all(out, _DECODE_KEYS)), B)
+        if board is None:
+            return
+        n_assist = min(n_quads, board.n_tags)
+        aout = refine_decode_fused_dense(
+            self.family, part, _to_device(quads[:, :n_assist], dev),
+            _to_device(np.ones((B, n_assist), bool), dev),
+            do_refine=self.refine, sharp=out["sharp"], maps=out["maps"],
+        )
+        _read_all(_fetch_all(aout, _ASSIST_KEYS))
+        if tracked:
+            n = board.n_tags
+            c = np.zeros((B, n, 4, 2), np.float32)
+            c[:, : min(n, n_quads)] = quads[:, : min(n, n_quads)]
+            v = np.zeros((B, n), bool)
+            v[:, : min(n, n_quads)] = True
+            carry = carry_to_device(init_wave_carry(c, v, c.copy(), v.copy()), dev)
+            board_xy = torch.as_tensor(
+                board.p3d.reshape(n, 4, 3)[:, :, :2].astype(np.float32), device=dev
             )
-            _read_all(_fetch_all(aout, _ASSIST_KEYS))
-            if self.track and self.refine:
-                n = board.n_tags
-                c = np.zeros((B, n, 4, 2), np.float32)
-                c[:, : min(n, n_quads)] = quads[:, : min(n, n_quads)]
-                v = np.zeros((B, n), bool)
-                v[:, : min(n, n_quads)] = True
-                carry = carry_to_device(init_wave_carry(c, v, c.copy(), v.copy()), dev)
-                board_xy = torch.as_tensor(
-                    board.p3d.reshape(n, 4, 3)[:, :, :2].astype(np.float32), device=dev
-                )
-                _, outs = wave_advance(
-                    self.family, part, board_xy, board.config.first_id, carry,
-                    torch.ones(B, dtype=torch.bool, device=dev),
-                )
-                outs[1].cpu()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self.prewarm_launches = thread_launches() - launched
+            _, outs = wave_advance(
+                self.family, part, board_xy, board.config.first_id, carry,
+                torch.ones(B, dtype=torch.bool, device=dev),
+            )
+            outs[1].cpu()
 
     # ----------------------------------------------------- shared helpers
     def _extract_quads(self, b1, board, scale):
@@ -470,19 +540,69 @@ class TagDetector:
             quads = quads * 2.0 + 0.5
         return quads, counts
 
-    def _dispatch_decode(self, dev_chunk, quads, counts):
-        """Truncate the (C, K) quad buffer to the chunk's largest count,
-        upload it (``_to_device``), queue the dense refine+decode on the chunk's device and start the host copies
-        of its outputs.  Returns (decode dict, ``_fetch_all`` handles)."""
+    def _dispatch_decode(self, dev_chunk, quads, counts, slot: int = 0, board=None):
+        """Upload the (n, K) quad buffer (``_to_device``), queue the dense
+        refine+decode of the (C, H, W) chunk on its device and start the
+        host copies of its outputs.  Returns (decode dict, ``_fetch_all``
+        handles).
+
+        The quad count grows the sticky ``_mq`` up the JAX ladder on every
+        device.  With graphs the decode runs at ``_mq`` quads (capped by K)
+        as instance ``slot`` of its graph, the C - n padding frames' rows
+        empty (``_decode_graphs`` holds what it replays); eagerly at the
+        chunk's largest count.  Padded quad slots are invalid (``qvalid``
+        False)."""
+        C = dev_chunk.shape[0]
         n_real = np.minimum(counts, quads.shape[1])
-        Mq = max(int(n_real.max()) if n_real.size else 1, 1)
+        need = int(n_real.max()) if n_real.size else 1
+        self._mq = max(self._mq, _quad_rung(need))
+        graphed = graphs.active(dev_chunk)
+        Mq = min(self._mq, quads.shape[1]) if graphed else max(need, 1)
+        if C > len(n_real):  # padding frames of the JAX plan: no quad
+            n_real = np.concatenate([n_real, np.zeros(C - len(n_real), n_real.dtype)])
+            quads = np.concatenate([quads, np.zeros((C - len(quads),) + quads.shape[1:],
+                                                    quads.dtype)])
         dev = dev_chunk.device
         qq = _to_device(quads[:, :Mq].astype(np.float32), dev)
         qv = _to_device(np.arange(Mq)[None, :] < n_real[:, None], dev)
-        out = refine_decode_fused_dense(
-            self.family, dev_chunk, qq, qv, do_refine=self.refine
-        )
+        if graphed:
+            shape = (dev, tuple(dev_chunk.shape[1:]), dev_chunk.dtype)
+            sizes = self._graph_sizes.setdefault(shape, set())
+            sizes.add(C)
+            for size in sorted(sizes) if dev.type == "cuda" else ():  # not the stand-ins
+                self._decode_graphs(dev, ((size,) + shape[1], shape[2]), Mq, board)
+            out = graphs.run(_decode_graph, (self.family, self.refine), (dev_chunk, qq, qv),
+                             slot=slot, pool=("decode", slot))
+        else:
+            out = refine_decode_fused_dense(
+                self.family, dev_chunk, qq, qv, do_refine=self.refine
+            )
         return out, _fetch_all(out, _DECODE_KEYS)
+
+    def _decode_graphs(self, dev, frame_spec, Mq: int, board) -> None:
+        """Hold (capture if missing, ``graphs.ensure``) both instances of the
+        decode graph for ``frame_spec`` ((C, H, W), dtype) frames and ``Mq``
+        quads and, with a board, each one's assist decode at both rungs of
+        the assist ladder.  ``_dispatch_decode`` holds them for every chunk
+        size decoded so far at this frame shape, so a second run over the
+        same frames, whose ``_mq`` starts where the first run's ended,
+        captures nothing.  Instance s and its assists share the memory pool
+        ("decode", s): chunk k's outputs are read before chunk k+2 replays
+        any graph of its pool."""
+        (C, _, _), _ = frame_spec
+        args = (self.family, self.refine)
+        f32, b8 = torch.float32, torch.bool
+        for slot in (0, 1):
+            pool = ("decode", slot)
+            g = graphs.ensure(_decode_graph, args, dev,
+                              (frame_spec, ((C, Mq, 4, 2), f32), ((C, Mq), b8)),
+                              slot=slot, pool=pool)
+            if board is None:
+                continue
+            for Ma in dict.fromkeys((min(_BUCKET, board.n_tags), board.n_tags)):
+                graphs.ensure(_assist_graph, args, dev, (((C, Ma, 4, 2), f32), ((C, Ma), b8)),
+                              bound=(g.outputs["sharp"], g.outputs["maps"]), slot=slot,
+                              pool=pool)
 
     def _collect_results(self, host, nb) -> List[Dict[int, np.ndarray]]:
         """Build per-frame {tag_id: corners} from the host copies of the
@@ -544,23 +664,36 @@ class TagDetector:
             return detect_batch_tracked(self, dev_all, board)
         return self._detect_batch_cold(dev_all, board)
 
+    def _plan(self, B: int, chunk: int | None = None, device=None) -> list:
+        """(first frame, frames, decoded frames) of each chunk
+        ``_detect_batch_cold`` runs for B frames on ``device`` (default
+        ``self.device``).  With
+        graphs: the JAX accelerator plan (``chunk`` repeated if given, else
+        ``self.chunk``-sized pieces and ``self.cold_chunk``-sized tail
+        pieces), the last piece clipped to the frames that remain and its
+        decode at the piece's full size.  Eagerly: ``chunk`` or
+        ``self.chunk`` frames each, the last one short, or under
+        ``CCRS_FORCE_CHUNK_PLAN`` the JAX plan clipped; each chunk decodes
+        its own frames."""
+        graphed = graphs.active(self.device if device is None else device)
+        natural = not graphed and not os.environ.get("CCRS_FORCE_CHUNK_PLAN")
+        sizes = _chunk_plan(B, self.chunk, self.cold_chunk, natural, chunk)
+        spans = _chunk_spans(B, self.chunk, self.cold_chunk, natural, chunk)
+        return [(lo, n, C if graphed else n) for (lo, n), C in zip(spans, sizes)]
+
     def _spans(self, B: int, chunk: int | None = None) -> list:
-        """(first frame, frames) of each chunk ``_detect_batch_cold`` runs
-        for B frames: ``chunk`` (a forced single size) or ``self.chunk``
-        frames each, the last one short; under ``CCRS_FORCE_CHUNK_PLAN``
-        the JAX accelerator plan with ``self.cold_chunk`` tail pieces, its
-        last piece clipped."""
-        natural = not os.environ.get("CCRS_FORCE_CHUNK_PLAN")
-        return _chunk_spans(B, self.chunk, self.cold_chunk, natural, chunk)
+        """(first frame, frames) of each chunk of ``_plan``."""
+        return [(lo, n) for lo, n, _ in self._plan(B, chunk)]
 
     def _detect_batch_cold(
         self, dev_all, board, chunk: int | None = None, idx=None
     ) -> List[Dict[int, np.ndarray]]:
         """The full detection pipeline over a (B, H, W) tensor: threshold ->
         bitmap copy -> native quad extraction -> refine+decode ->
-        board-assist recovery, pipelined across the chunks of ``_spans``
-        in the three phases of the module docstring.  No padding frame is
-        detected.
+        board-assist recovery, pipelined across the chunks of ``_plan``
+        in the three phases of the module docstring.  A padding frame of
+        the JAX plan (graphs) is decoded but neither thresholded nor
+        reported.
 
         ``idx``: optional frame indices into ``dev_all`` to detect (the
         tracked path's anchors and audits); each chunk gathers its frames
@@ -579,7 +712,7 @@ class TagDetector:
         if B == 0:
             return []
         dev = dev_all.device
-        spans = self._spans(B, chunk)
+        spans = self._plan(B, chunk, dev)
         # Large-image path: the pixel-proportional candidate stages run at
         # half resolution when the image is >= pyramid_min_side a side;
         # refinement and decode always sample the full-resolution frames
@@ -589,17 +722,22 @@ class TagDetector:
         pw = sW + ((-sW) % wmul)  # packed width after white padding
 
         # Phase 0: queue every chunk's gather and threshold, each bitmap's
-        # host copy right behind its own threshold
-        if idx is not None:
-            sel = _to_device(np.asarray(idx, np.int64), dev)
-        parts, bitmaps = [], []
-        for lo, n in spans:
-            if idx is None:
+        # host copy right behind its own threshold.  A gathered chunk's
+        # rows: its frames, then its last frame repeated up to C
+        frames = np.arange(B) if idx is None else np.asarray(idx, np.int64)
+        rows = [np.concatenate([frames[lo : lo + n], np.repeat(frames[lo + n - 1], C - n)])
+                for lo, n, C in spans]
+        if idx is not None or any(n < C for _, n, C in spans):
+            sel = _to_device(np.concatenate(rows), dev)
+        parts, bitmaps, off = [], [], 0
+        for (lo, n, C), r in zip(spans, rows):
+            if idx is None and n == C:
                 part = dev_all[lo : lo + n].contiguous()
             else:
-                part = dev_all.index_select(0, sel[lo : lo + n])
+                part = dev_all.index_select(0, sel[off : off + C])
+            off += C
             parts.append(part)
-            bitmaps.append(_Fetch(threshold_front(part, scale)))
+            bitmaps.append(_Fetch(threshold_front(part[:n], scale)))
 
         pending = [None] * len(spans)
         results: List[List[Dict[int, np.ndarray]]] = []
@@ -608,34 +746,43 @@ class TagDetector:
         def phase1(ci):
             """Host quad extraction, then queue the refine+decode."""
             with stage("detect/threshold"):
-                packed = bitmaps[ci].get()  # (C, sHp, sWp/8)
+                packed = bitmaps[ci].get()  # (n, sHp, sWp/8)
                 bitmaps[ci] = None
                 b1 = np.unpackbits(packed, axis=-1, count=pw)[:, :sH, :sW]
             with stage("detect/quadproc"):
                 quads, counts = self._extract_quads(b1, board, scale)
             with stage("detect/dispatch"):
-                pending[ci] = self._dispatch_decode(parts[ci], quads, counts)
+                # two graph instances in turn: chunk ci's assist (phase 2,
+                # queued after chunk ci+1's decode) reads its own maps
+                pending[ci] = self._dispatch_decode(parts[ci], quads, counts, ci % 2, board)
 
         def phase2(ci):
             """Read the decode outputs, queue the assist decode; the chunk's
             frames, sharpened frames and maps go once it is queued."""
             out, fetches = pending[ci]
             pending[ci] = None
+            _, n, C = spans[ci]
             with stage("detect/decode"):
-                chunk_results = self._collect_results(_read_all(fetches), spans[ci][1])
+                chunk_results = self._collect_results(_read_all(fetches), n)
             results.append(chunk_results)
             if board is not None:
                 with stage("detect/assist"):
-                    aq, av, aexp = assist_candidates(board, chunk_results, W, H)
+                    # padding frames have no detections, hence no candidates
+                    aq, av, aexp = assist_candidates(board, chunk_results + [{}] * (C - n), W, H)
                     if aq is not None:
                         # reuse the primary pass's sharpened frames and maps
                         # (the returned dict holds them too: keep only the
                         # copies of its outputs)
-                        aout = refine_decode_fused_dense(
-                            self.family, parts[ci], _to_device(aq, dev),
-                            _to_device(av, dev), do_refine=self.refine,
-                            sharp=out["sharp"], maps=out["maps"],
-                        )
+                        aq, av = _to_device(aq, dev), _to_device(av, dev)
+                        if graphs.active(dev):
+                            aout = graphs.run(_assist_graph, (self.family, self.refine),
+                                              (aq, av), bound=(out["sharp"], out["maps"]),
+                                              slot=ci % 2, pool=("decode", ci % 2))
+                        else:
+                            aout = refine_decode_fused_dense(
+                                self.family, parts[ci], aq, av, do_refine=self.refine,
+                                sharp=out["sharp"], maps=out["maps"],
+                            )
                         assist_pending.append((ci, aexp, _fetch_all(aout, _ASSIST_KEYS)))
             parts[ci] = None
 

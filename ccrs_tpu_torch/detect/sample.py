@@ -172,7 +172,7 @@ def _tap_corr(x, taps: np.ndarray, dim: int, edge: bool):
     out = None
     for i, w in enumerate(taps):
         term = float(w) * xp.narrow(dim, i, n)
-        out = term if out is None else out + term
+        out = term if out is None else out.add_(term)  # out is this loop's own
     return out
 
 
@@ -196,9 +196,12 @@ def build_klt_maps(images, use_matmul=None):
     (w*ox*gx^2, w*oy*gxgy, w*ox*gxgy, w*oy*gy^2).
 
     Returns (B, 7, H, W) float32; window sums use a zero border.  The
-    matmul branch's 12 banded products are stacked as (B, H, 7, W) in
+    matmul branch's 12 banded products are stored as (B, H, 7, W) in
     memory and returned as a permuted view, the layout its refine product
-    reads as (B, H, 7*W) without a copy."""
+    reads as (B, H, 7*W) without a copy.  Each map is written into the
+    result as it is made and every intermediate goes after its last use,
+    which keeps the peak memory down: a captured graph's memory pool holds
+    that peak (``graphs.py``)."""
     f = images.to(torch.float32)
     B, H, W = f.shape
     gx = torch.zeros_like(f)
@@ -208,6 +211,7 @@ def build_klt_maps(images, use_matmul=None):
     gxx = gx * gx
     gxy = gx * gy
     gyy = gy * gy
+    del gx, gy
     mm = _use_mm(use_matmul, f)
     if mm:
         dev = f.device
@@ -225,22 +229,29 @@ def build_klt_maps(images, use_matmul=None):
 
     # y (row) pass once per (source, ky) pair, then x (col) passes
     gxx_g = cy(gxx, g_h)
+    del gxx
     gxy_g = cy(gxy, g_h)
-    gyy_g = cy(gyy, g_h)
     gxy_go = cy(gxy, go_h)
+    del gxy
+    gyy_g = cy(gyy, g_h)
     gyy_go = cy(gyy, go_h)
-    maps = [
-        cx(gxx_g, g_w),    # A
-        cx(gxy_g, g_w),    # B
-        cx(gyy_g, g_w),    # D
-        cx(gxx_g, go_w),   # sum w*ox*gx^2
-        cx(gxy_go, g_w),   # sum w*oy*gx*gy
-        cx(gxy_g, go_w),   # sum w*ox*gx*gy
-        cx(gyy_go, g_w),   # sum w*oy*gy^2
-    ]
+    del gyy
     if mm:
-        return torch.stack(maps, dim=2).permute(0, 2, 1, 3)
-    return torch.stack(maps, dim=1)
+        maps = f.new_empty((B, H, 7, W)).permute(0, 2, 1, 3)
+    else:
+        maps = f.new_empty((B, 7, H, W))
+    maps[:, 0] = cx(gxx_g, g_w)    # A
+    maps[:, 3] = cx(gxx_g, go_w)   # sum w*ox*gx^2
+    del gxx_g
+    maps[:, 1] = cx(gxy_g, g_w)    # B
+    maps[:, 5] = cx(gxy_g, go_w)   # sum w*ox*gx*gy
+    del gxy_g
+    maps[:, 4] = cx(gxy_go, g_w)   # sum w*oy*gx*gy
+    del gxy_go
+    maps[:, 2] = cx(gyy_g, g_w)    # D
+    del gyy_g
+    maps[:, 6] = cx(gyy_go, g_w)   # sum w*oy*gy^2
+    return maps
 
 
 def _floor_taps(x, y, H: int, W: int):

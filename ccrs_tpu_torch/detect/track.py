@@ -16,8 +16,10 @@ sweep) and ``right-1-w`` (backward sweep) in one batched pass that
     (the in-wave assist),
   - and carries the accepted corners to the segment's next frame.
 
-Everything is batched tensor code on the frames' device (the JAX package
-writes it as one jitted graph; the port runs it eagerly).  The refine and
+Everything is batched tensor code on the frames' device.  The JAX package
+writes it as one jitted graph; on the card the port replays it as one
+captured CUDA graph per wave shape (``wave_step``, ``graphs.py``), and
+runs it eagerly elsewhere.  The refine and
 decode reuse the cold path's ``build_klt_maps``, ``refine_corners_mm``,
 ``unsharp_mm`` and ``_decode_core_dense``, in the branch of ``sample.py``
 that the frames' device takes.  Image-space math is float32,
@@ -346,6 +348,19 @@ def wave_advance(family: TagFamily, images, board_xy, first_id: int,
     new_age = torch.where(acc, torch.zeros_like(coast_age), coast_age + 1)
     new_carry = (c2, v2, c1, v1, new_c, acc, new_coast, new_coast_v, new_age)
     return new_carry, (out_c, acc, attempt, benign)
+
+
+def wave_step(family: TagFamily, first_id: int, images, board_xy, row_active, *carry):
+    """``wave_advance`` with the carry updated in place, in the argument
+    order ``graphs.get`` captures: the card replays one graph per wave
+    shape, its carry in the graph's own buffers.  Returns the wave's
+    outputs (corners, acc, att, benign)."""
+    new_carry, outs = wave_advance(family, images, board_xy, first_id, carry, row_active)
+    # in tuple order each slot is read (as a source or by the step) before
+    # it is overwritten: (c2, v2, c1, v1) move down, the rest are new
+    for buf, value in zip(carry, new_carry):
+        buf.copy_(value)
+    return outs
 
 
 def init_wave_carry(c1, v1, c2, v2, c3=None, v3=None):

@@ -15,10 +15,17 @@ every frame.
 
 Every decision (anchor layout, cold-direct segments, audits, resweeps)
 is the JAX package's, so both packages detect the same tags on the same
-frames.  The JAX package rounds the wave row count and the resweep wave
-count up to fixed buckets so its compiled graphs are reused; eager torch
-compiles nothing, so the port runs exactly the rows and waves it needs
-(rows never interact, and inactive rows decode nothing).
+frames.  The JAX package rounds the wave rows and the resweep wave count up
+to sticky buckets so that one compiled executable serves every wave; the
+port keeps the same buckets on every device (``_wave_rows``: 2 rows a
+segment rounded up to 8, ``_wave_rows_small``: resweep jobs rounded up to
+8, both grow-only; resweep waves rounded up to 4).  On the card the waves
+run at them, as one captured CUDA graph per row bucket replayed once a
+wave (``_run_waves``): the padding rows are inactive, and a resweep's
+trailing waves with no active row are not replayed (their outputs would
+sit unread in the stack).  Eagerly (the CPU) the port runs exactly the
+rows and waves it needs.  Rows never interact and inactive rows decode
+nothing, so padding changes no result bit.
 
 Sharding (``TagDetector(shard=)``): ``finalize`` splits the whole sequence
 over the mesh once.  Anchors, cold-direct and audit sweeps then run through
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import stage
+from . import graphs
 from .audit import AuditPolicy, RowLayout
 from .track import (
     MIN_TRACK_TAGS,
@@ -45,6 +53,7 @@ from .track import (
     detections_to_arrays,
     init_wave_carry,
     wave_advance,
+    wave_step,
 )
 
 log = logging.getLogger(__name__)
@@ -139,20 +148,66 @@ def detect_batch_tracked(det, dev_all, board) -> List[Dict[int, np.ndarray]]:
     return _detect_tracked(det, dev_all, board, n_valid=dev_all.shape[0])
 
 
+def _bucket(det, attr: str, need: int) -> int:
+    """The JAX package's sticky row bucket ``attr`` of ``det``: ``need``
+    rows rounded up to 8, never below its last value."""
+    rows = max(-(-need // 8) * 8, getattr(det, attr))
+    setattr(det, attr, rows)
+    return rows
+
+
 def _run_waves(det, dev_all, board_xy, first: int, frame_of, act, carry):
-    """Advance the carry through ``len(frame_of)`` waves; wave w runs row r
-    on frame ``frame_of[w, r]`` (active where ``act[w, r]``).  Returns the
+    """Advance the carry through the waves of ``frame_of``; wave w runs row
+    r on frame ``frame_of[w, r]`` (active where ``act[w, r]``).  Returns the
     per-wave outputs stacked on the device: (corners, acc, att, benign),
     each with a leading (W, R) shape."""
     dev = dev_all.device
     frame_t = torch.as_tensor(frame_of.astype(np.int64), device=dev)
     act_t = torch.as_tensor(act, device=dev)
+    if graphs.active(dev):
+        return _replay_waves(det, dev_all, board_xy, first, frame_of, frame_t, act, act_t, carry)
     outs = []
     for w in range(frame_of.shape[0]):
         imgs_w = dev_all.index_select(0, frame_t[w])
         carry, out = wave_advance(det.family, imgs_w, board_xy, first, carry, act_t[w])
         outs.append(out)
     return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def _replay_waves(det, dev_all, board_xy, first, frame_of, frame_t, act, act_t, carry):
+    """``_run_waves`` through the graph of ``track.wave_step`` for this
+    wave shape: the carry and board go into its buffers once, each wave's
+    frames are gathered into its image buffer (``index_select(out=)``) and
+    its outputs copied into slot w of a preallocated (W, R, ...) stack, the
+    counterpart of the JAX package's ``_stack_outs``, before the next
+    replay (every wave graph shares the memory pool "wave").  Waves after
+    the last one with an active row are not replayed (the first always
+    is)."""
+    n_waves = max(int(np.flatnonzero(act.any(axis=1)).max(initial=0)) + 1, 1)
+    W = frame_of.shape[0]
+
+    def frames_into(w, out):
+        if isinstance(dev_all, torch.Tensor):
+            torch.index_select(dev_all, 0, frame_t[w], out=out)
+        else:  # frame shards: gathered onto the first shard's device
+            out.copy_(dev_all.index_select(0, frame_of[w]))
+
+    g = graphs.get(wave_step, (det.family, int(first)),
+                   (dev_all.index_select(0, frame_t[0]), board_xy, act_t[0], *carry),
+                   pool="wave")
+    g.inputs[1].copy_(board_xy)
+    for buf, c in zip(g.inputs[3:], carry):
+        buf.copy_(c)
+    stack = None
+    for w in range(n_waves):
+        frames_into(w, g.inputs[0])
+        g.inputs[2].copy_(act_t[w])
+        outs = g.replay()
+        if stack is None:
+            stack = tuple(o.new_empty((W,) + o.shape) for o in outs)
+        for s, o in zip(stack, outs):
+            s[w].copy_(o)
+    return stack
 
 
 def _detect_tracked(det, dev_all, board, n_valid: int):
@@ -297,8 +352,12 @@ def _detect_tracked(det, dev_all, board, n_valid: int):
             c3[r], v3[r] = detections_to_arrays(r3, board)
         return carry_to_device(init_wave_carry(c1, v1, c2, v2, c3, v3), dev)
 
+    graphed = graphs.active(dev_all)
     R = 2 * len(segs)
     if Wmax > 0:
+        rows = _bucket(det, "_wave_rows", R)
+        if graphed:
+            R = rows
         frame_of = np.zeros((Wmax, R), np.int64)
         act = np.zeros((Wmax, R), bool)
         seeds = []
@@ -389,9 +448,14 @@ def _detect_tracked(det, dev_all, board, n_valid: int):
     def run_resweeps(jobs) -> None:
         """Re-run sweep rows from corrected seeds.  jobs: list of
         (frames in sweep order, seed frames (f1 nearest, f2, f3))."""
+        R2 = _bucket(det, "_wave_rows_small", len(jobs))
         W2 = max(len(fl) for fl, _ in jobs)
-        f_of = np.zeros((W2, len(jobs)), np.int64)
-        a2 = np.zeros((W2, len(jobs)), bool)
+        if graphed:  # the JAX buckets: wave count a multiple of 4
+            W2 = -(-W2 // 4) * 4
+        else:
+            R2 = len(jobs)
+        f_of = np.zeros((W2, R2), np.int64)
+        a2 = np.zeros((W2, R2), bool)
         for j, (fl, _) in enumerate(jobs):
             f_of[: len(fl), j] = fl
             a2[: len(fl), j] = True
@@ -401,7 +465,7 @@ def _detect_tracked(det, dev_all, board, n_valid: int):
         ]
         with stage("detect/track"):
             stacked = _run_waves(
-                det, dev_all, board_xy, first, f_of, a2, seed_carry(seeds, len(jobs))
+                det, dev_all, board_xy, first, f_of, a2, seed_carry(seeds, R2)
             )
             store(f_of, a2, stacked, rewrite=write_result)
 

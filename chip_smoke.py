@@ -66,13 +66,16 @@ entry points a user calls, at the benchmark's sizes:
   or none.  The peak memory above the frames of a pipelined run on the
   first 128 and on all 534 frames of the 512 sequence: it must not grow
   by more than ``FLAT_MIB`` (phase 2 runs one chunk behind phase 1, so at
-  most two chunks' KLT maps are alive).  Then the 512 phase's tracked main
-  path once with the natural chunk plan (the default) and once with the
-  JAX accelerator plan (``CCRS_FORCE_CHUNK_PLAN=1``: 8-frame tail pieces),
-  with both walls;
-- phase sampling: the two branches of ``detect/sample.py`` (banded and
-  hat-weight products, or tap loops and gathers; the card takes the
-  matmul branch unless a caller forces one).  (a) The four functions
+  most two chunks' KLT maps are alive).  With graphs (the card's default
+  since the graphs phase came) the chunks follow the JAX accelerator plan
+  and the decodes are replayed graphs.  Then the 512 phase's tracked main
+  path eagerly (``graphs.eager()``) once with the natural chunk plan and
+  once with the JAX accelerator plan (``CCRS_FORCE_CHUNK_PLAN=1``: 8-frame
+  tail pieces), with both walls;
+- phase sampling, run eagerly (``graphs.eager()``), as it was measured
+  before the graphs came: the two branches of ``detect/sample.py`` (banded
+  and hat-weight products, or tap loops and gathers; the card takes the
+  gather branch unless a caller forces one).  (a) The four functions
   (``unsharp_mm``, ``build_klt_maps``, ``refine_corners_mm``,
   ``sample_bilinear_mm``) on the inputs the detector gives them in one
   64-frame chunk of the 512 frames (its quadproc quads) and in the first
@@ -96,6 +99,23 @@ entry points a user calls, at the benchmark's sizes:
   what this run's rule (keep the gather branch if the matmul branch's
   best 512 wall, tracked or cold, is slower by more than the spread
   between runs) would take;
+- phase graphs: the detect path's captured CUDA graphs (``detect/graphs.py``,
+  the card's default: the refine + decode and the assist decode of every
+  cold chunk, the wave step of every wave) against eager torch
+  (``graphs.eager()``) on the cold detector at 534 x 512^2, 128 x 1024^2
+  and the cli frames and on the tracked 512 and 1024 main paths: a first
+  run from an empty graph cache (captures, replays, capture seconds, pool
+  MiB) and a second one, which must capture nothing; then eager and graphs
+  in turns (eager, graphs, graphs, eager, eager, graphs): every graphed
+  run's detections equal the eager ones bit for bit (ids and corners), best
+  of 3 warm walls and the spread, ``detect/*`` stages, peak memory above
+  the frames, busy share (torch.profiler), host launch calls
+  (``cudaLaunchKernel`` and its variants plus ``cudaGraphLaunch``) and
+  device time per 64-frame cold chunk and per wave; a line with the
+  default rule's verdict (eager if graphs' best 512 wall, tracked or cold,
+  is slower by more than the spread); then the tracked 512 main path with
+  graphs on natural chunks (one decode graph per chunk size) against the
+  JAX plan, in turns;
 - phase undistort: EuRoC cam0's undistortion map from 752x480 to 1024x1024
   and the remap of one cli frame, on the card and on the CPU (maps within
   1e-3 px, pixels within 1 gray level), with their times;
@@ -435,22 +455,36 @@ def recall_gate(tracked, cold, cold_every, label):
         raise RuntimeError(f"{label} tracked recall below the cold path's")
 
 
-def device_busy_share(torch, fn):
-    """Run fn under torch.profiler: (device busy seconds from the CUDA
-    kernel and copy events, wall seconds of the profiled run, names of the
-    CUDA kernels launched).  Reads the profiler's raw events: building its
-    per-op event objects (``prof.events()``) takes tens of microseconds an
-    op, seconds per run."""
+def profile_run(torch, fn):
+    """Run fn under torch.profiler: device busy seconds (the CUDA kernel and
+    copy events), wall seconds of the profiled run, the names of the CUDA
+    kernels run, and the host launch calls it made (the CUDA runtime's
+    kernel launches, ``cudaLaunchKernel`` and its variants, and
+    ``cudaGraphLaunch``, as CPU-side events).  Reads the profiler's raw
+    events: building its per-op event objects (``prof.events()``) takes
+    tens of microseconds an op, seconds per run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = sync_time(torch, fn)
-    events = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == DeviceType.CUDA]
-    busy_ns = sum(e.duration_ns() for e in events)
-    kernels = [e.name() for e in events if not e.name().startswith(("Memcpy", "Memset"))]
-    return busy_ns / 1e9, wall, kernels
+    events = list(prof.profiler.kineto_results.events())
+    device = [e for e in events if e.device_type() == DeviceType.CUDA]
+    host = [e.name() for e in events if e.device_type() != DeviceType.CUDA]
+    graph_launches = sum(n == "cudaGraphLaunch" for n in host)
+    kernel_launches = sum("LaunchKernel" in n for n in host)
+    return dict(busy_s=sum(e.duration_ns() for e in device) / 1e9, wall_s=wall,
+                kernels=[e.name() for e in device
+                         if not e.name().startswith(("Memcpy", "Memset"))],
+                launch_calls=kernel_launches + graph_launches,
+                graph_launches=graph_launches)
+
+
+def device_busy_share(torch, fn):
+    """``profile_run``'s (device busy seconds, wall seconds, CUDA kernel
+    names)."""
+    r = profile_run(torch, fn)
+    return r["busy_s"], r["wall_s"], r["kernels"]
 
 
 def run_phase(size, n_frames, card):
@@ -1342,15 +1376,17 @@ def run_pipeline_phase(card, frames512, cli_frames, board):
 
     # the natural plan against the JAX accelerator plan's 8-frame tail
     # pieces in the tracked main path's sweeps
+    from ccrs_tpu_torch.detect import graphs
+
     tracked = {}
     for plan, env in (("natural", {}), ("jax_plan", {"CCRS_FORCE_CHUNK_PLAN": "1"})):
-        with env_set(**env):
+        with env_set(**env), graphs.eager():  # the plans of eager torch (graphs: graphs phase)
             run = main_path(512, N_512, frames512, board, card,
-                            f"[pipeline tracked, {plan} chunk plan] ({card})")
+                            f"[pipeline tracked, eager, {plan} chunk plan] ({card})")
         launches += run["launches"]
         tracked[plan] = dict(wall_s=run["t_total"], stats=run["stats"],
                              stages_s=run["stages"])
-    print(f"[pipeline tracked] ({card}) main path walls: natural plan "
+    print(f"[pipeline tracked] ({card}) eager main path walls: natural plan "
           f"{tracked['natural']['wall_s']:.3f} s, CCRS_FORCE_CHUNK_PLAN=1 "
           f"{tracked['jax_plan']['wall_s']:.3f} s")
     result["tracked_chunk_plan"] = tracked
@@ -2165,6 +2201,222 @@ def run_sampling_phase(card, frames512, frames1024, cli_frames, board):
     return result, launches
 
 
+@contextlib.contextmanager
+def first_run_waves(log):
+    """Append the arguments of the first ``tracked._run_waves`` call (the
+    main sweep) inside the block to ``log``."""
+    from ccrs_tpu_torch.detect import tracked
+
+    real = tracked._run_waves
+
+    def wrapper(*args):
+        if not log:
+            log.append(args)
+        return real(*args)
+
+    tracked._run_waves = wrapper
+    try:
+        yield log
+    finally:
+        tracked._run_waves = real
+
+
+def natural_plan(self, B, chunk=None, device=None):
+    """``TagDetector._plan`` with natural chunks on every device, each
+    decoded at its own size (under graphs: one graph per chunk size)."""
+    from ccrs_tpu_torch.detect.detector import _chunk_spans
+
+    return [(lo, n, n) for lo, n in _chunk_spans(B, self.chunk, self.cold_chunk, True, chunk)]
+
+
+def run_graphs_phase(card, frames512, frames1024, cli_frames, board):
+    """The detect path's captured CUDA graphs (``detect/graphs.py``, the
+    card's default) against eager (``graphs.eager()``) on five sets: the
+    cold detector on 534 x 512^2, 128 x 1024^2 and the cli frames, and the
+    tracked 512 and 1024 main paths.  Per set: a first run with graphs
+    from an empty cache (captures, replays, capture seconds, pool MiB) and
+    a second one (it must capture nothing); then eager and graphs in turns
+    (eager, graphs, graphs, eager, eager, graphs): detections of every
+    graphed run equal to the eager ones bit for bit, best of 3 warm walls
+    and the spread, ``detect/*`` stages, peak memory above the frames;
+    busy share (one profiled run each); host launch calls and device time
+    per 64-frame cold chunk with its assist and per wave of the main
+    sweep.  Then the default rule (graphs unless the tracked 512 main path
+    or the 534 x 512^2 cold detector is slower with graphs by more than
+    the spread), and the tracked 512 main path with natural chunks against
+    the JAX plan, both with graphs.  Returns (numbers, threshold launches
+    of its detections)."""
+    import torch
+
+    from ccrs_tpu_torch.detect import TagDetector, graphs, tracked
+    from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
+    from ccrs_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    cold = TagDetector("t36h11", track=False, device="cuda")
+    sets = [
+        (f"cold {N_512}x512x512", None, [frames512]),
+        (f"cold {N_1024}x1024x1024", None, [frames1024]),
+        (f"cold 2 cameras x {N_CLI}x480x752", None,
+         [torch.as_tensor(f).cuda() for f in cli_frames]),
+        ("tracked 512 main path", 512, [frames512]),
+        ("tracked 1024 main path", 1024, [frames1024]),
+    ]
+    result, failed, launches = {"sets": []}, [], 0
+
+    def run(size, seqs, label):
+        """One run of the set: its detections, wall, stages, threshold
+        launches and peak memory above the frames."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if size is None:
+            profiling.reset()
+            threshold_front_cuda.launches = 0
+            dets, wall = sync_time(torch, lambda: [
+                r for seq in seqs for r in cold.detect_batch(None, board, dev_images=seq)])
+            out = dict(dets=dets, t_total=wall, stages=profiling.totals(),
+                       launches=threshold_front_cuda.launches)
+        else:
+            out = main_path(size, seqs[0].shape[0], seqs[0], board, card, label)
+        torch.cuda.synchronize()
+        out["peak_above_input_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        return out
+
+    decide = {}
+    for label, size, seqs in sets:
+        tag = f"[graphs {label}] ({card})"
+        entry = dict(set=label)
+        graphs.reset()
+        torch.cuda.empty_cache()
+        waves = {"graphs": [], "eager": []}
+        counts = []
+        for i in range(2):  # the first run from an empty cache, then the second
+            graphs.reset_counts()
+            with first_run_waves(waves["graphs"]) if i else contextlib.nullcontext():
+                r = run(size, seqs, f"{tag} run {i + 1} with graphs")
+            launches += r["launches"]
+            counts.append(graphs.counts())
+        entry.update(first_run=dict(counts[0], wall_s=r["t_total"]), second_run=counts[1])
+        print(f"{tag} first run: {counts[0]['captures']} captures in "
+              f"{counts[0]['capture_s']:.3f} s, {counts[0]['replays']} replays; second run "
+              f"captured {counts[1]['captures']}, replayed {counts[1]['replays']}; "
+              f"{counts[1]['graphs']} graphs held, pools {counts[1]['pool_mib']:.1f} MiB")
+        if counts[1]["captures"] != 0 or counts[1]["replays"] == 0:
+            failed.append(f"{tag} the second run captured {counts[1]['captures']} graphs "
+                          f"(replayed {counts[1]['replays']})")
+        runs = {"graphs": [], "eager": []}
+        ref = None
+        for mode in ("eager", "graphs", "graphs", "eager", "eager", "graphs"):
+            record = first_run_waves(waves["eager"]) if mode == "eager" else None
+            with graphs.eager(mode == "eager"), record or contextlib.nullcontext():
+                r = run(size, seqs, f"{tag} {mode}")
+            launches += r["launches"]
+            if ref is None:
+                ref = r["dets"]
+            try:
+                same_detections(r["dets"], ref, tag, f"{mode} against eager", exact=True)
+            except RuntimeError as e:
+                failed.append(str(e))
+            runs[mode].append(r)
+        spread = max(max(r["t_total"] for r in rs) - min(r["t_total"] for r in rs)
+                     for rs in runs.values())
+        for mode, rs in runs.items():
+            best = min(rs, key=lambda r: r["t_total"])
+            with graphs.eager(mode == "eager"):
+                prof = profile_run(torch, lambda: run(size, seqs, f"{tag} {mode} profiled"))
+            entry[mode] = dict(
+                walls_s=[r["t_total"] for r in rs], best_s=best["t_total"],
+                stages_s={n: v for n, v in best["stages"].items() if n.startswith("detect/")},
+                peak_above_input_mib=max(r["peak_above_input_mib"] for r in rs),
+                stats=best.get("stats"),
+                busy=dict(busy_s=prof["busy_s"], wall_s=prof["wall_s"],
+                          share=prof["busy_s"] / prof["wall_s"]),
+            )
+            print(f"{tag} {mode}: walls {', '.join(f'{r['t_total']:.3f}' for r in rs)} s, best "
+                  f"{best['t_total']:.3f} s; busy {prof['busy_s']:.3f} s of {prof['wall_s']:.3f} s "
+                  f"under torch.profiler ({prof['busy_s'] / prof['wall_s']:.1%}); peak above the "
+                  f"frames {entry[mode]['peak_above_input_mib']:.1f} MiB")
+            for n, v in sorted(entry[mode]["stages_s"].items(), key=lambda kv: -kv[1]):
+                print(f"{tag}   {mode} {n:20s} {v:8.4f} s")
+            # host launch calls and device time per cold chunk and per wave
+            with graphs.eager(mode == "eager"):
+                if size is None:
+                    one = seqs[0][:64].contiguous()
+                    cold.detect_batch(None, board, dev_images=one)  # warm
+                    p = profile_run(torch, lambda: cold.detect_batch(None, board, dev_images=one))
+                    entry[mode]["per_chunk"] = dict(
+                        frames=64, launch_calls=p["launch_calls"],
+                        graph_launches=p["graph_launches"], kernels=len(p["kernels"]),
+                        device_ms=p["busy_s"] * 1e3)
+                    print(f"{tag} {mode}, one 64-frame chunk with its assist: "
+                          f"{entry[mode]['per_chunk']}")
+                else:
+                    args = waves[mode][0]
+                    act = args[5]
+                    n_waves = int(np.flatnonzero(act.any(axis=1)).max()) + 1
+                    p = profile_run(torch, lambda: [t.cpu() for t in tracked._run_waves(*args)])
+                    entry[mode]["per_wave"] = dict(
+                        rows=int(act.shape[1]), waves=n_waves,
+                        launch_calls=p["launch_calls"] / n_waves,
+                        graph_launches=p["graph_launches"] / n_waves,
+                        kernels=len(p["kernels"]) / n_waves,
+                        device_ms=p["busy_s"] * 1e3 / n_waves)
+                    print(f"{tag} {mode}, the main sweep's waves: {entry[mode]['per_wave']} "
+                          "(per wave, the stack's copy to the host included)")
+        entry["spread_s"] = spread
+        gap = entry["graphs"]["best_s"] - entry["eager"]["best_s"]
+        entry["graphs_minus_eager_s"] = gap
+        print(f"{tag} best graphs {entry['graphs']['best_s']:.3f} s, eager "
+              f"{entry['eager']['best_s']:.3f} s, spread between runs {spread:.3f} s; "
+              f"detections equal bit for bit in every run")
+        if label in (f"cold {N_512}x512x512", "tracked 512 main path"):
+            decide[label] = gap > spread
+        result["sets"].append(entry)
+        print(f"[graphs] ({card}) {label} done at {time.perf_counter() - t_phase:.1f} s")
+
+    slower = [k for k, v in decide.items() if v]
+    rule = "eager" if slower else "graphs"
+    result.update(rule_takes=rule, graphs_slower_beyond_spread=slower)
+    print(f"[graphs default] ({card}) the card runs the detect path as graphs by default "
+          f"(graphs.active: {graphs.active(torch.device('cuda'))}); this run's rule (eager if "
+          f"graphs' best of 3 is slower by more than the spread on the tracked 512 main path "
+          f"or the {N_512}x512x512 cold detector) takes {rule}"
+          + (f": graphs slower on {slower}" if slower else ""))
+
+    # natural chunks against the JAX plan, now with graphs: natural
+    # pieces capture one decode graph per chunk size
+    from ccrs_tpu_torch.detect.detector import TagDetector as TD
+
+    graphs.reset()
+    torch.cuda.empty_cache()
+    real_plan = TD._plan
+    plans = {"natural": [], "jax_plan": []}
+    try:
+        for plan in ("natural", "jax_plan", "jax_plan", "natural"):
+            TD._plan = natural_plan if plan == "natural" else real_plan
+            graphs.reset_counts()
+            r = main_path(512, N_512, frames512, board, card,
+                          f"[graphs tracked 512, {plan} chunks] ({card})")
+            launches += r["launches"]
+            plans[plan].append(dict(wall_s=r["t_total"], stats=r["stats"],
+                                    captures=graphs.counts()["captures"]))
+    finally:
+        TD._plan = real_plan
+    result["tracked_chunk_plan"] = plans
+    print(f"[graphs tracked 512 chunk plan] ({card}) main path walls with graphs: natural "
+          f"chunks {[p['wall_s'] for p in plans['natural']]} s (captures "
+          f"{[p['captures'] for p in plans['natural']]}), JAX plan "
+          f"{[p['wall_s'] for p in plans['jax_plan']]} s (captures "
+          f"{[p['captures'] for p in plans['jax_plan']]})")
+    graphs.reset()
+    torch.cuda.empty_cache()
+    print(f"[graphs] ({card}) phase took {time.perf_counter() - t_phase:.1f} s")
+    if failed:  # after the measurements, so that a failed run still shows them
+        raise RuntimeError("graphs phase gates failed: " + "; ".join(failed))
+    return result, launches
+
+
 def main() -> int:
     import torch
 
@@ -2223,12 +2475,19 @@ def main() -> int:
     launches_mesh = run_mesh_phase(card, frames512, run512, create_default_6x6_board(), joint)
     pipeline, launches_pipeline = run_pipeline_phase(card, frames512, cli_frames,
                                                      create_default_6x6_board())
-    sampling, launches_sampling = run_sampling_phase(card, frames512, frames1024, cli_frames,
+    from ccrs_tpu_torch.detect import graphs
+
+    with graphs.eager():  # the comparison of the two branches, eagerly
+        sampling, launches_sampling = run_sampling_phase(card, frames512, frames1024,
+                                                         cli_frames, create_default_6x6_board())
+    graphs_phase, launches_graphs = run_graphs_phase(card, frames512, frames1024, cli_frames,
                                                      create_default_6x6_board())
     del frames512, frames1024
     run_undistort_phase(card, cli_frames[0][0])
     launches_colour = run_colour_phase(card, cli_frames[0][:N_COLOUR])
     run_tools_phase(card)
+    graphs.reset()  # the timing programs' processes need the card's memory
+    torch.cuda.empty_cache()
     bench, launches_bench = run_bench_phase(card)
     # every decoded frame of both cameras, as one sequence of 2 x 640 frames
     kcli = check_kernel(torch.as_tensor(np.concatenate(cli_frames)).cuda(), 1, card,
@@ -2241,14 +2500,15 @@ def main() -> int:
     print(json.dumps({"bench": bench, "card": card}))
     print(json.dumps({"pipeline": pipeline, "card": card}))
     print(json.dumps({"sampling": sampling, "card": card}))
+    print(json.dumps({"graphs": graphs_phase, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "threshold_front",
         "route": "cuda",
         "source": "ccrs_tpu_torch/csrc/threshold.cu",
         "replaces": "ccrs_tpu/ops/threshold_pallas.py:35",
         "launches": (launches512 + launches1024 + launches_cli + launches_mesh
-                     + launches_pipeline + launches_sampling + launches_colour
-                     + launches_fresh + launches_bench),
+                     + launches_pipeline + launches_sampling + launches_graphs
+                     + launches_colour + launches_fresh + launches_bench),
         "launches_512": launches512,
         "launches_1024": launches1024,
         "launches_cli": launches_cli,
@@ -2257,6 +2517,8 @@ def main() -> int:
         "launches_pipeline": launches_pipeline,
         # the sampling phase's detections, both branches
         "launches_sampling": launches_sampling,
+        # the graphs phase's detections, with graphs and eager
+        "launches_graphs": launches_graphs,
         "launches_colour": launches_colour,
         # the subprocess CLI runs' own launches, and their warm-up threads'
         # (each child prints its library's count and, of that, what the

@@ -9,8 +9,11 @@ solvers on the card against the CPU, and the cold detector's chunk
 pipeline against the same chunks detected one per call, bit for bit, also
 with the stream held back by sleep kernels, and its peak memory flat in
 the batch size; the sampling branch's constants made once per device, and
-a 64-frame chunk through the matmul branch without a synchronizing call.
-The card-vs-CPU comparisons run the CPU side in the card's sampling branch
+a 64-frame chunk through the matmul branch without a synchronizing call;
+the captured CUDA graphs of the detect path (``detect/graphs.py``, the
+card's default) against eager, bit for bit, a capture that synchronizes
+raising, a second warm run capturing nothing, and sharded detection under
+graphs.  The card-vs-CPU comparisons run the CPU side in the card's sampling branch
 (``sample.matmul_branch``).  They skip without a CUDA device.
 
 This file imports neither jax nor ``ccrs_tpu``, so it also runs on a
@@ -25,7 +28,7 @@ import pytest
 import torch
 
 from ccrs_tpu_torch.board import create_default_6x6_board
-from ccrs_tpu_torch.detect import TagDetector, get_family, sample
+from ccrs_tpu_torch.detect import TagDetector, get_family, graphs, sample
 from ccrs_tpu_torch.detect.threshold import threshold_front, threshold_front_plain
 from ccrs_tpu_torch.models import GenericModel
 from ccrs_tpu_torch.ops.threshold_cuda import threshold_front_cuda
@@ -522,12 +525,14 @@ def _chunk_by_chunk(det, board, frames):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["graphs", "eager"])
 @pytest.mark.parametrize("shape", ["534x512x512", "534x512x512-jax-plan", "640x480x752"])
-def test_cold_pipeline_on_the_card_equals_chunk_by_chunk(card, shape, monkeypatch):
+def test_cold_pipeline_on_the_card_equals_chunk_by_chunk(card, shape, mode, monkeypatch):
     """The three-phase pipeline on the card gives the bits of the same
-    chunks detected one per call; 534 frames run as 8 x 64 + 22, and under
-    ``CCRS_FORCE_CHUNK_PLAN`` (the JAX accelerator plan) as 8 x 64 + 8 +
-    8 + 6."""
+    chunks detected one per call.  Eagerly 534 frames run as 8 x 64 + 22,
+    and under ``CCRS_FORCE_CHUNK_PLAN`` (the JAX accelerator plan) as 8 x
+    64 + 8 + 8 + 6; with graphs (the card's default) always as the JAX
+    plan, whose last piece's threshold sees its 6 real frames."""
     from ccrs_tpu_torch.detect import detector as TD
 
     if shape == "534x512x512":
@@ -537,15 +542,18 @@ def test_cold_pipeline_on_the_card_equals_chunk_by_chunk(card, shape, monkeypatc
         frames, plan = _frames(512, 534, noise=1.5, device="cuda"), [64] * 8 + [8, 8, 6]
     else:
         frames, plan = _camera_frames(640, "cuda"), [64] * 10
+    if mode == "graphs" and shape == "534x512x512":
+        plan = [64] * 8 + [8, 8, 6]
     board = create_default_6x6_board()
     det = TagDetector("t36h11", track=False, device=card)
     sizes = []
     real = TD.threshold_front
     monkeypatch.setattr(TD, "threshold_front",
                         lambda part, scale: sizes.append(part.shape[0]) or real(part, scale))
-    got = det.detect_batch(None, board, dev_images=frames)
-    assert sizes == plan
-    _same_bits(got, _chunk_by_chunk(det, board, frames))
+    with graphs.eager(mode == "eager"):
+        got = det.detect_batch(None, board, dev_images=frames)
+        assert sizes == plan
+        _same_bits(got, _chunk_by_chunk(det, board, frames))
     assert sum(len(g) for g in got) > 10 * len(got)
 
 
@@ -584,7 +592,9 @@ def test_cold_pipeline_peak_memory_does_not_grow_with_the_batch(card):
     frames = _frames(512, 384, noise=1.5, device="cuda")
     board = create_default_6x6_board()
     det = TagDetector("t36h11", track=False, device=card)
-    det._detect_batch_cold(frames[:64], board)  # warm
+    # warm: with graphs (the default) every decode graph these frames
+    # need is captured here, its maps in its own pool
+    det._detect_batch_cold(frames, board)
     peak = {}
     for n in (128, 384):
         torch.cuda.synchronize()
@@ -620,7 +630,7 @@ def test_sampling_constants_made_once_per_device(card):
 
 @pytest.mark.cuda
 def test_matmul_chunk_makes_no_synchronizing_call(card, monkeypatch):
-    """A 64-frame 512x512 chunk of the cold detector runs to its end under
+    """A 64-frame 512x512 chunk of the eager cold detector runs to its end under
     ``set_sync_debug_mode("error")`` through the matmul branch (the second
     chunk of its shape; its hat weights were built), and a blocking
     ``.item()`` after it raises."""
@@ -630,7 +640,7 @@ def test_matmul_chunk_makes_no_synchronizing_call(card, monkeypatch):
     hats = []
     real = sample._hat
     monkeypatch.setattr(sample, "_hat", lambda *a: hats.append(1) or real(*a))
-    with sample.matmul_branch(True):
+    with sample.matmul_branch(True), graphs.eager():
         want = det.detect_batch(None, board, dev_images=frames)
         torch.cuda.synchronize()
         n_hats = len(hats)
@@ -642,4 +652,190 @@ def test_matmul_chunk_makes_no_synchronizing_call(card, monkeypatch):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert n_hats > 0 and len(hats) == 2 * n_hats
+    _same_bits(got, want)
+
+
+def _decode_calls(det, board, frames, monkeypatch):
+    """The args of every refine_decode_fused_dense call of one eager cold
+    detection of ``frames`` (the primary decode first, then the assist)."""
+    from ccrs_tpu_torch.detect import detector as TD
+
+    calls = []
+    real = TD.refine_decode_fused_dense
+    with monkeypatch.context() as m:
+        m.setattr(TD, "refine_decode_fused_dense",
+                  lambda *a, **k: calls.append((a, k)) or real(*a, **k))
+        with graphs.eager():
+            det.detect_batch(None, board, dev_images=frames)
+    return calls
+
+
+@pytest.mark.cuda
+def test_graphs_equal_eager_on_a_chunk_and_a_wave(card, monkeypatch):
+    """One 64-frame 512x512 chunk: the captured primary decode and the
+    assist decode that reads its maps in place give the eager calls' bits
+    (every output, the maps and sharpened frames included), and so does
+    the cold detector through them; one wave of the tracked detector: the
+    graph of ``wave_step`` gives ``wave_advance``'s outputs and carry.
+    Then the whole tracked detection of 96 frames, graphed (padded rows,
+    the JAX plan's pieces) against eager (natural shapes): equal bits."""
+    from ccrs_tpu_torch.detect import detector as TD
+    from ccrs_tpu_torch.detect import track as TT
+    from ccrs_tpu_torch.detect import tracked as TTR
+
+    frames = _frames(512, 96, noise=1.5, device="cuda")
+    board = create_default_6x6_board()
+    det = TagDetector("t36h11", track=False, device=card)
+    calls = _decode_calls(det, board, frames[:64].contiguous(), monkeypatch)
+    (fam, images, quads, qvalid), kw = calls[0]
+    (_, _, aq, av), akw = next(c for c in calls if c[1].get("maps") is not None)
+    want = TD.refine_decode_fused_dense(fam, images, quads, qvalid, **kw)
+    got = graphs.run(TD._decode_graph, (fam, True), (images, quads, qvalid), pool="test")
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    awant = TD.refine_decode_fused_dense(fam, images, aq, av, do_refine=True,
+                                         sharp=want["sharp"], maps=want["maps"])
+    agot = graphs.run(TD._assist_graph, (fam, True), (aq, av),
+                      bound=(got["sharp"], got["maps"]), pool="test")
+    for k in ("tag_id", "hamming", "valid", "corners"):
+        assert torch.equal(agot[k], awant[k]), k
+    with graphs.eager():
+        eager = det.detect_batch(None, board, dev_images=frames[:64])
+    _same_bits(det.detect_batch(None, board, dev_images=frames[:64]), eager)
+
+    waves = []
+    real = TTR.wave_advance
+    monkeypatch.setattr(TTR, "wave_advance", lambda *a: waves.append(a) or real(*a))
+    with graphs.eager():
+        eager = TagDetector("t36h11", device=card).detect_batch(None, board, dev_images=frames)
+    monkeypatch.setattr(TTR, "wave_advance", real)
+    fam, imgs, bxy, first, carry, act = waves[0]
+    want_carry, want = TT.wave_advance(fam, imgs, bxy, first, carry, act)
+    g = graphs.get(TT.wave_step, (fam, first), (imgs, bxy, act, *carry), pool="test-wave")
+    for buf, t in zip(g.inputs, (imgs, bxy, act, *carry)):
+        buf.copy_(t)
+    outs = g.replay()
+    for a, b in zip(tuple(outs) + tuple(g.inputs[3:]), want + want_carry):
+        assert torch.equal(a, b)
+    _same_bits(TagDetector("t36h11", device=card).detect_batch(None, board, dev_images=frames),
+               eager)
+
+
+@pytest.mark.cuda
+def test_capture_that_synchronizes_raises(card):
+    """A function that reads a value back to the host (``.item()``)
+    cannot be captured: ``graphs.get`` raises, counts no capture, and
+    captures the next function as before."""
+    x = torch.arange(4.0, device=card)
+    before = graphs.counts()["captures"]
+
+    def reads_back(a):
+        return a * a.sum().item()
+
+    with pytest.raises(RuntimeError):
+        graphs.get(reads_back, (), (x,))
+    assert graphs.counts()["captures"] == before
+    torch.cuda.synchronize()
+
+    def doubles(a):
+        return a * 2
+
+    out = graphs.run(doubles, (), (x,))
+    assert graphs.counts()["captures"] == before + 1
+    assert torch.equal(out, x * 2)
+    assert torch.equal(graphs.run(doubles, (), (x + 1,)), (x + 1) * 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("track", [True, False])
+def test_second_warm_run_captures_nothing(card, track):
+    """The same 150 frames through one detector twice: the second run
+    replays every graph it runs and captures none, and detects the same
+    bits."""
+    frames = _frames(512, 150, noise=1.5, device="cuda")
+    board = create_default_6x6_board()
+    det = TagDetector("t36h11", track=track, device=card)
+    first = det.detect_batch(None, board, dev_images=frames)
+    det.reset_tracking()
+    graphs.reset_counts()
+    again = det.detect_batch(None, board, dev_images=frames)
+    counts = graphs.counts()
+    assert counts["captures"] == 0 and counts["replays"] > 0, counts
+    _same_bits(again, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("track", [False, True])
+def test_sharded_detect_under_graphs_equals_unsharded_and_eager(card, track):
+    """With graphs, the detector on the mesh (two shards of the card when
+    one is visible) equals the unsharded one and the eager one, bit for
+    bit, and replays graphs."""
+    from ccrs_tpu_torch.parallel import mesh
+
+    board = create_default_6x6_board()
+    cards = _card_mesh(card)
+    frames = _frames(512, 24 * len(cards), noise=1.5).to(card)
+    with graphs.eager():
+        eager = TagDetector("t36h11", track=track, shard=False).detect_batch(
+            None, board, dev_images=frames)
+    base = TagDetector("t36h11", track=track, shard=False).detect_batch(
+        None, board, dev_images=frames)
+    graphs.reset_counts()
+    with mesh.default_mesh(cards):
+        sh = TagDetector("t36h11", track=track).detect_batch(None, board, dev_images=frames)
+    assert graphs.counts()["replays"] > 0
+    _same_bits(sh, base)
+    _same_bits(base, eager)
+
+
+@pytest.mark.cuda
+def test_graphs_beside_other_threads(card):
+    """The warm-up on a thread of its own while this thread synchronizes
+    the whole device in a loop (``bench_torch.py`` synchronizes beside its
+    warm-up threads): no error on either side, since the warm-up captures
+    no graph.  Then a first detection, which captures its graphs while
+    another thread reads values back (``.item()``, as the speculation
+    thread does): no error, and the bits of eager detection."""
+    import threading
+
+    graphs.reset()
+    frames = _frames(512, 64, noise=1.5, device="cuda")
+    board = create_default_6x6_board()
+    det = TagDetector("t36h11", device=card)
+    errors = []
+
+    def warm():
+        try:
+            det.prewarm(512, 512, board, n_frames=64)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    t = threading.Thread(target=warm)
+    t.start()
+    while t.is_alive():
+        torch.cuda.synchronize()
+    t.join()
+    assert not errors and graphs.counts()["graphs"] == 0
+    stop = threading.Event()
+
+    def read_back():
+        x = torch.ones(4096, device=card)
+        while not stop.is_set():
+            try:
+                (x * 2).sum().item()
+            except Exception as e:  # reported below
+                errors.append(e)
+                return
+
+    r = threading.Thread(target=read_back)
+    r.start()
+    graphs.reset_counts()
+    try:
+        got = det.detect_batch(None, board, dev_images=frames)
+    finally:
+        stop.set()
+        r.join()
+    assert not errors and graphs.counts()["captures"] > 0
+    with graphs.eager():
+        want = TagDetector("t36h11", device=card).detect_batch(None, board, dev_images=frames)
     _same_bits(got, want)

@@ -169,20 +169,35 @@ def test_card_plan_on_the_cpu_matches_the_natural_plan(frames, monkeypatch, chun
 @pytest.mark.parametrize("env", [{}, {"CCRS_DETECT_CHUNK": "4", "CCRS_TRACK_COLD_CHUNK": "2"}],
                          ids=["defaults", "set"])
 def test_default_plan_is_natural_on_every_device(env, monkeypatch):
-    """Unless ``CCRS_FORCE_CHUNK_PLAN`` is set, chunks take their natural
-    size whatever the device (the JAX package's accelerator plan only
-    bounds its compiled shapes); ``cold_chunk`` acts under the knob only."""
+    """Eagerly, unless ``CCRS_FORCE_CHUNK_PLAN`` is set, chunks take their
+    natural size whatever the device (the JAX package's accelerator plan
+    only bounds its compiled shapes); ``cold_chunk`` acts under the knob
+    only.  With graphs (the card's default) the card takes the JAX
+    accelerator plan, its last piece clipped and decoded at its full
+    size."""
+    from ccrs_tpu_torch.detect import graphs
+
     monkeypatch.delenv("CCRS_FORCE_CHUNK_PLAN", raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     for device in ("cpu", "cuda"):  # the plan reads no tensor: no card needed
         det = TagDetector("t36h11", track=False, device=device)
-        for B in (0, 1, 5, 22, 63, 64, 65, 534):
-            want = JD._chunk_plan(B, det.chunk, det.cold_chunk, cpu=True)
-            spans = det._spans(B)
-            assert [n for _, n in spans] == want, (device, B)
-            assert [lo for lo, _ in spans] == list(np.cumsum([0] + want)[: len(want)])
-        assert [n for _, n in det._spans(534, chunk=100)] == [100] * 5 + [34]
+        with graphs.eager():
+            for B in (0, 1, 5, 22, 63, 64, 65, 534):
+                want = JD._chunk_plan(B, det.chunk, det.cold_chunk, cpu=True)
+                spans = det._spans(B)
+                assert [n for _, n in spans] == want, (device, B)
+                assert [lo for lo, _ in spans] == list(np.cumsum([0] + want)[: len(want)])
+                assert det._plan(B) == [(lo, n, n) for lo, n in spans]
+            assert [n for _, n in det._spans(534, chunk=100)] == [100] * 5 + [34]
+    det = TagDetector("t36h11", track=False, device="cuda")
+    assert not graphs.active("cpu") and graphs.active(det.device)
+    for B in (0, 1, 5, 22, 63, 64, 65, 534):
+        want = JD._chunk_plan(B, det.chunk, det.cold_chunk, cpu=False)
+        plan = det._plan(B)
+        assert [C for _, _, C in plan] == want, B
+        assert [lo for lo, _, _ in plan] == list(np.cumsum([0] + want)[: len(want)])
+        assert [n for _, n, _ in plan] == want[:-1] + [B - sum(want[:-1])] * bool(want)
 
 
 def test_pipeline_keeps_at_most_two_chunks_of_maps(frames, monkeypatch):
