@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ccrs_tpu_torch import cli as cli_mod
+from ccrs_tpu_torch import graphs
 from ccrs_tpu_torch.board import BoardConfig, create_default_6x6_board
 from ccrs_tpu_torch.calib import calib_camera, validation
 from ccrs_tpu_torch.calib.frames import FrameBatch
@@ -109,7 +110,9 @@ def run_config(size: int, n_frames: int, collect_stages: bool, device="cuda"):
 
     def sync():
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            # waits for any capture on another thread to end first (a
+            # device-wide synchronize fails while a stream captures)
+            graphs.synchronize(device)
 
     board = create_default_6x6_board()
     fam = get_family("t36h11")

@@ -70,23 +70,24 @@ def init_camera_extrinsic(
             np.concatenate([init.rvec, init.tvec]), dtype=F64, device=device
         )
         r_inv, t_inv = se3.inverse(tib[:, :3], tib[:, 3:])
-
-        def residual(x):
-            # log( T_i_b^-1 * T_i_0 * T_0_b ) per common frame (SE3Factor,
-            # factors.rs:248-271)
-            rv_a, tv_a = se3.compose(
-                x[:3].expand_as(t0b[:, :3]), x[3:].expand_as(t0b[:, 3:]),
-                t0b[:, :3], t0b[:, 3:],
-            )
-            r_d, t_d = se3.compose(r_inv, t_inv, rv_a, tv_a)
-            blocks = torch.cat([r_d, t_d], dim=1)  # (K, 6)
-            return blocks, torch.ones(blocks.shape[0], dtype=x.dtype, device=x.device)
-
-        x, _, _ = lm_solve(residual, x0, opts=LMOptions(huber_delta=0.5))
+        x, _, _ = lm_solve(_extrinsic_residual, x0, opts=LMOptions(huber_delta=0.5),
+                           data=(t0b, r_inv, t_inv))
         x = x.cpu().numpy()
         log.info("extrinsic cam%d<-cam0: rvec %s tvec %s", cam_i, x[:3], x[3:])
         out.append(RvecTvec(x[:3], x[3:]))
     return out
+
+
+def _extrinsic_residual(x, t0b, r_inv, t_inv):
+    """log( T_i_b^-1 * T_i_0 * T_0_b ) per common frame (SE3Factor,
+    factors.rs:248-271), with weights."""
+    rv_a, tv_a = se3.compose(
+        x[:3].expand_as(t0b[:, :3]), x[3:].expand_as(t0b[:, 3:]),
+        t0b[:, :3], t0b[:, 3:],
+    )
+    r_d, t_d = se3.compose(r_inv, t_inv, rv_a, tv_a)
+    blocks = torch.cat([r_d, t_d], dim=1)  # (K, 6)
+    return blocks, torch.ones(blocks.shape[0], dtype=x.dtype, device=x.device)
 
 
 def calib_all_camera_with_extrinsics(

@@ -15,6 +15,12 @@ background thread while the host decodes images.
 The Jacobians of every thread run under one lock (``solve/lm.py``): while
 the warm-up holds it for its first Jacobian, a solve on another thread
 waits, which costs that thread nothing it would not have paid itself.
+
+The warm-up captures no CUDA graph (``graphs.no_capture``): its solves run
+eagerly on its own thread, while the detecting thread keeps its graphs.  A
+capture here would make a device-wide synchronize on any other thread
+fail for as long as it lasts, and the dummy problems' shapes are not the
+run's, so their graphs would serve nothing.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .. import graphs
 from ..board import Board
 from ..models import GenericModel, zeros_like_model
 from ..types import CalibParams, RvecTvec
@@ -101,38 +108,40 @@ def prewarm_calibration(
     torch, seeded 0): the caller's generators, the speculation's and
     torch's global one are not touched.
     """
-    if calib_params is None:
-        calib_params = CalibParams()
-    if isinstance(target_model, str):
-        target_model = zeros_like_model(target_model)
-    cam = _plausible(target_model, width, height)
-    n_spec = n_frames if n_frames_spec is None else n_frames_spec
-    F = max(2, min(max(n_frames, n_spec), WARM_FRAMES))
-    batch, poses = _dummy_batch(board, cam, F)
+    # all of it eagerly on this thread: the detecting thread keeps its graphs
+    with graphs.no_capture():
+        if calib_params is None:
+            calib_params = CalibParams()
+        if isinstance(target_model, str):
+            target_model = zeros_like_model(target_model)
+        cam = _plausible(target_model, width, height)
+        n_spec = n_frames if n_frames_spec is None else n_frames_spec
+        F = max(2, min(max(n_frames, n_spec), WARM_FRAMES))
+        batch, poses = _dummy_batch(board, cam, F)
 
-    generator = torch.Generator(device=device).manual_seed(0)
-    try_init_camera(
-        board, batch, 0, 1, generator, calib_params.fixed_focal, device=device,
-        solver=solver,
-    )
-
-    one_focal = calib_params.one_focal or calib_params.fixed_focal is not None
-    # (polish_iters, skip_pose_init, pose_init_f32): the cold final solve
-    # always; the warm-path final and the float32-PnP seed solve only
-    # exist when the caller speculates
-    variants = [(12, False, False)]
-    if speculative:
-        variants += [(12, True, False), (2, False, True)]
-    for polish_iters, skip, p32 in variants:
-        calib_camera(
-            board, batch, cam, one_focal, calib_params.disabled_distortion_num,
-            False,
-            warm_poses=poses if skip else None,
-            warm_valid=np.ones(F) if skip else None,
-            polish_iters=polish_iters, skip_pose_init=skip, pose_init_f32=p32,
-            device=device, solver=solver,
+        generator = torch.Generator(device=device).manual_seed(0)
+        try_init_camera(
+            board, batch, 0, 1, generator, calib_params.fixed_focal, device=device,
+            solver=solver,
         )
+
+        one_focal = calib_params.one_focal or calib_params.fixed_focal is not None
+        # (polish_iters, skip_pose_init, pose_init_f32): the cold final solve
+        # always; the warm-path final and the float32-PnP seed solve only
+        # exist when the caller speculates
+        variants = [(12, False, False)]
+        if speculative:
+            variants += [(12, True, False), (2, False, True)]
+        for polish_iters, skip, p32 in variants:
+            calib_camera(
+                board, batch, cam, one_focal, calib_params.disabled_distortion_num,
+                False,
+                warm_poses=poses if skip else None,
+                warm_valid=np.ones(F) if skip else None,
+                polish_iters=polish_iters, skip_pose_init=skip, pose_init_f32=p32,
+                device=device, solver=solver,
+            )
     if torch.device(device).type == "cuda":
         # this thread's stream, not the device: a device-wide synchronize
-        # fails while another thread captures a CUDA graph (detect/graphs.py)
+        # fails while another thread captures a CUDA graph (graphs.py)
         torch.cuda.current_stream(device).synchronize()

@@ -14,6 +14,12 @@ mixed route only: a float64 solve has no separate polish.  The warm-start
 arguments (``warm_poses``, ``warm_valid``, ``skip_pose_init``) and the
 float32 pose init (``pose_init_f32``) of the speculative calibration are
 ported.
+
+On the card the pose init is one captured graph per (model, F, N)
+(``_pose_init_device``'s counterpart), and ``calib_camera_solve`` replays
+the whole prologue (pose init, warm-pose merge, frame mask) as one graph
+and then the LM's start and chunks (``solve/lm.py``), one host read per
+chunk: ``_calib_camera_device``'s counterpart.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import graphs
 from ..board import Board
 from ..models import GenericModel
 from ..models.projections import project_fn, unproject_fn
@@ -75,8 +82,13 @@ def pose_init(unproj, params, p2d, mask, p3d):
     """Per-frame pose init: unproject -> x/z -> batched planar PnP.
 
     params (P,), p2d (F, N, 2), mask (F, N) bool, p3d (N, 3), all on one
-    device.  Returns (poses (F, 6), frame_valid (F,) 0/1) — frames with
-    fewer than MIN_PNP_POINTS valid unprojections are masked out."""
+    device; on the card one graph per (``unproj``, shapes, dtype).
+    Returns (poses (F, 6), frame_valid (F,) 0/1) — frames with fewer than
+    MIN_PNP_POINTS valid unprojections are masked out."""
+    return graphs.call(_pose_init, (unproj,), (params, p2d, mask, p3d))
+
+
+def _pose_init(unproj, params, p2d, mask, p3d):
     rays, uvalid = unproj(params, p2d)
     uvalid = uvalid & mask
     z = rays[..., 2:3]
@@ -129,23 +141,14 @@ def calib_camera_solve(
     observed corners (the PnP path counts unprojectable corners, a
     tighter test).  ``pose_init_f32``: the PnP runs in float32 (only for
     seed-quality solves; the poses come back as float64)."""
-    if skip_pose_init:
-        poses0 = warm_poses
-        frame_valid = (mask.sum(dim=1) >= MIN_PNP_POINTS).to(theta0.dtype)
-    else:
-        if pose_init_f32:
-            f32 = torch.float32
-            poses0, frame_valid = pose_init(
-                unproj, params_full.to(f32), p2d.to(f32), mask, p3d.to(f32)
-            )
-        else:
-            poses0, frame_valid = pose_init(unproj, params_full, p2d, mask, p3d)
-        poses0 = poses0.to(theta0.dtype)
-        frame_valid = frame_valid.to(theta0.dtype) * (mask.sum(dim=1) > 0)
-        if warm_poses is not None:
-            poses0 = torch.where((warm_valid > 0)[:, None], warm_poses, poses0)
-    args = (proj, theta0, poses0, p3d, p2d, mask.to(theta0.dtype), lo, hi, free,
-            frame_valid)
+    if skip_pose_init and warm_poses is None:
+        raise ValueError("skip_pose_init requires warm_poses")
+    warm = () if warm_poses is None else (warm_poses, warm_valid)
+    poses0, frame_valid, w = graphs.call(
+        _solve_prologue, (unproj, skip_pose_init, pose_init_f32, theta0.dtype),
+        (params_full, p2d, mask, p3d, *warm),
+    )
+    args = (proj, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid)
     if check_solver(solver) == "mixed":
         res = ba_solve_mixed(*args, one_focal=one_focal, max_iters=max_iters,
                              huber_delta=huber_delta, polish_iters=polish_iters)
@@ -153,6 +156,28 @@ def calib_camera_solve(
         res = ba_solve(*args, one_focal=one_focal, max_iters=max_iters,
                        huber_delta=huber_delta)
     return res, frame_valid
+
+
+def _solve_prologue(unproj, skip_pose_init, pose_init_f32, dtype, params_full, p2d, mask,
+                    p3d, *warm):
+    """``calib_camera_solve``'s start: (poses0, frame_valid, observation
+    weights), with ``warm`` = (warm_poses, warm_valid) or ()."""
+    if skip_pose_init:
+        poses0 = warm[0]
+        frame_valid = (mask.sum(dim=1) >= MIN_PNP_POINTS).to(dtype)
+    else:
+        if pose_init_f32:
+            f32 = torch.float32
+            poses0, frame_valid = _pose_init(
+                unproj, params_full.to(f32), p2d.to(f32), mask, p3d.to(f32)
+            )
+        else:
+            poses0, frame_valid = _pose_init(unproj, params_full, p2d, mask, p3d)
+        poses0 = poses0.to(dtype)
+        frame_valid = frame_valid.to(dtype) * (mask.sum(dim=1) > 0)
+        if warm:
+            poses0 = torch.where((warm[1] > 0)[:, None], warm[0], poses0)
+    return poses0, frame_valid, mask.to(dtype)
 
 
 def calib_camera(

@@ -5,6 +5,9 @@ and the reference's tagged-enum JSON (``src/util.rs:38-49,245-282``).
 Compute goes through the torch functions in
 :mod:`ccrs_tpu_torch.models.projections`; the host convenience wrappers
 ``project``/``unproject`` evaluate them in float64 on the CPU.
+``project_on`` / ``unproject_on`` evaluate them on the tensors' device, on
+the card as one captured graph per (model, shape): the counterpart of the
+JAX package's ``_project_jit`` / ``_unproject_jit``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .. import graphs
 from . import projections as P
 
 # JSON tag (serde external tagging) and parameter field order per model.
@@ -141,6 +145,17 @@ class GenericModel:
         fields = _PARAM_FIELDS[name]
         params = [float(inner[f]) for f in fields]
         return GenericModel(name, params, inner["width"], inner["height"])
+
+
+def project_on(name: str, params, p3d):
+    """``projections.project`` on the tensors' device: on the card one
+    graph per (model, shapes), elsewhere eagerly."""
+    return graphs.call(P.project, (name,), (params, p3d))
+
+
+def unproject_on(name: str, params, p2d):
+    """``projections.unproject`` on the tensors' device, as ``project_on``."""
+    return graphs.call(P.unproject, (name,), (params, p2d))
 
 
 def model_to_json(path: str, model: GenericModel) -> None:

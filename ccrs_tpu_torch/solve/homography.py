@@ -129,9 +129,12 @@ def _score(p0, p1, mask, H, lam):
     root = torch.sqrt(in_sqrt)
     a0 = _where_small((r[..., 2] - root) / 2.0, 1e-20)
     a1 = _where_small((r[..., 2] + root) / 2.0, 1e-20)
-    first = int(torch.argmax(mask.to(torch.int32)))
-    d0_first = torch.abs(p1[first, 0] - r[:, first, 0] / a0[:, first])
-    d1_first = torch.abs(p1[first, 0] - r[:, first, 0] / a1[:, first])
+    # the first observed pair, as a tensor index: no host read
+    first = torch.argmax(mask.to(torch.int32)).reshape(1)
+    p1f = torch.index_select(p1, 0, first)[0, 0]
+    rf = torch.index_select(r, 1, first)[:, 0, 0]
+    d0_first = torch.abs(p1f - rf / torch.index_select(a0, 1, first)[:, 0])
+    d1_first = torch.abs(p1f - rf / torch.index_select(a1, 1, first)[:, 0])
     a = torch.where((d0_first < d1_first)[:, None], a0, a1)
     d = torch.sqrt((p1[:, 0] - r[..., 0] / a) ** 2 + (p1[:, 1] - r[..., 1] / a) ** 2)
     wsum = torch.clamp(torch.sum(mask.to(p0.dtype)), min=1.0)
@@ -175,8 +178,10 @@ def radial_distortion_homography(
     # a sample is meaningless with < 6 observed pairs (degenerate mask)
     enough = torch.sum(mask) >= 6
     score = torch.where(valid & enough, score, torch.full_like(score, torch.inf))
-    best = torch.argmin(score)
-    return lam[best], H[best], score[best]
+    # the best hypothesis by a tensor index: no host read
+    best = torch.argmin(score).reshape(1)
+    return (torch.index_select(lam, 0, best)[0], torch.index_select(H, 0, best)[0],
+            torch.index_select(score, 0, best)[0])
 
 
 def homography_to_focal_traced(H):

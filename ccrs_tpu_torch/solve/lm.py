@@ -13,10 +13,26 @@ Port of ``ccrs_tpu/solve/lm.py``:
 - the BA normal equations use the Schur complement over the pose blocks:
   F independent 6x6 Cholesky solves and one k x k reduced system.
 
-The damping loop is a Python loop; each iteration reads its stop flag back
-to the host once.  Cholesky factorizations of matrices that are not
-positive definite yield NaN (``cholesky_nan``), as ``jnp.linalg.cholesky``
-does, and the LM rejects such steps through its finiteness guard.
+The damping loop keeps its state on the solve's device, as the JAX
+package's ``lax.while_loop`` does: the iterate, ``lam``, the cost, the run
+of rejections, whether a step was accepted, the iteration count and the
+stop flag are tensors, and one iteration is a pure body from that state to
+the next one.  Once the stop flag is set (or ``max_iters`` is reached) the
+body leaves every state tensor as it was, bit for bit, so a fixed chunk of
+iterations runs a while-loop's iterations and counts only those.  On the
+card (``graphs.active``) each solve captures two CUDA graphs per shape
+(``graphs.py``): its start (clamp, first cost, fresh state) and a chunk of
+``CHUNK_ITERS`` iterations that updates the state in place; the host
+replays the chunk and reads the stop flag once per replay.  Elsewhere (the
+CPU, ``graphs.eager()``, the warm-up thread's ``no_capture()``, a mesh of
+several cards) the same bodies run eagerly, one iteration per host read.
+Results and ``n_iters`` are the same bits either way.
+
+Cholesky factorizations of matrices that are not positive definite yield
+NaN (``cholesky_nan``), as ``jnp.linalg.cholesky`` does, and the LM
+rejects such steps through its finiteness guard.  The solves behind them
+are two triangular solves (cuBLAS on the card): the batched
+``torch.cholesky_solve`` goes through MAGMA there, which a capture refuses.
 
 ``ba_solve_multi`` is the joint multi-camera solve.  ``ba_solve_mixed`` and
 ``ba_solve_multi_mixed`` are the two-stage mixed-precision solvers: the
@@ -29,6 +45,7 @@ multiplies in full float32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
@@ -37,7 +54,13 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.func import jacfwd, vmap
 
+from .. import graphs
 from . import se3
+
+#: LM iterations per captured chunk on the card: the host reads the stop
+#: flag once per replay, and a solve runs up to CHUNK_ITERS - 1 masked
+#: iterations after its stop (chosen by measurement: PERF.md §6)
+CHUNK_ITERS = 4
 
 
 def polish_rtol() -> float:
@@ -100,9 +123,12 @@ def cholesky_nan(M):
 
 
 def cho_solve(L, b):
-    """Solve (L L^T) x = b for b of shape (..., n) or (..., n, m)."""
+    """Solve (L L^T) x = b for b of shape (..., n) or (..., n, m), by two
+    triangular solves (the same bits as ``torch.cholesky_solve`` on the
+    CPU; on the card it captures, where the batched MAGMA route does not)."""
     vec = b.ndim == L.ndim - 1
-    x = torch.cholesky_solve(b[..., None] if vec else b, L)
+    y = torch.linalg.solve_triangular(L, b[..., None] if vec else b, upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)
     return x[..., 0] if vec else x
 
 
@@ -145,45 +171,138 @@ def _finite_or_zero(x):
     return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
 
 
-class _LMState:
-    """The damping loop's scalars (lam, cost, the run of rejections, whether
-    any step was accepted) and its verdict on each trial step.
+def _lm_scalars(opts: LMOptions, cost):
+    """The damping loop's fresh scalars beside the first ``cost``: lam,
+    cost, the run of rejections, whether any step was accepted, the
+    iteration count and the stop flag (set at once when max_iters <= 0)."""
+    dev = cost.device
+    return (
+        torch.full((), opts.lam0, dtype=cost.dtype, device=dev), cost,
+        torch.zeros((), dtype=torch.int64, device=dev),
+        torch.zeros((), dtype=torch.bool, device=dev),
+        torch.zeros((), dtype=torch.int64, device=dev),
+        torch.full((), opts.max_iters <= 0, dtype=torch.bool, device=dev),
+    )
+
+
+def _lm_update(opts: LMOptions, stall_lam: float, st, c_new, gsmall=None):
+    """One verdict of the damping loop on a trial of cost ``c_new``, from
+    the scalars ``st`` (``_lm_scalars``' order): accept iff it lowers the
+    cost.  Returns (accept, next scalars).  ``gsmall``: an extra
+    convergence test (a vanished gradient).
 
     ``stall_lam``: a stall also needs lam to have climbed this far
     (``LMOptions.stall_lam``); 0 stalls on the rejection count alone, the
-    rule of the JAX package's frame-sharded solvers."""
+    rule of the JAX package's frame-sharded solvers.
 
-    def __init__(self, cost, opts: LMOptions, stall_lam: float):
-        dev = cost.device
-        self.opts = opts
-        self.stall_lam = stall_lam
-        self.lam = torch.tensor(opts.lam0, dtype=cost.dtype, device=dev)
-        self.cost = cost
-        self.rej = torch.zeros((), dtype=torch.int64, device=dev)
-        self.acc_any = torch.zeros((), dtype=torch.bool, device=dev)
-        self.it = 0
+    Once the stop flag is set the iteration does not count: every scalar
+    comes back as it was and ``accept`` is False, so the caller keeps its
+    iterate too."""
+    o = opts
+    lam, cost, rej, acc_any, it, done = st
+    run = ~done
+    accept = c_new < cost
+    lam_n = torch.clamp(
+        torch.where(accept, lam * o.lam_down, lam * o.lam_up), o.lam_min, o.lam_max,
+    )
+    converged = accept & (cost - c_new <= o.rtol * torch.clamp(cost, min=1e-300))
+    if gsmall is not None:
+        converged = converged | gsmall
+    rej_n = torch.where(accept, torch.zeros_like(rej), rej + 1)
+    acc_n = acc_any | accept
+    limit = torch.where(acc_n, o.max_rejects, 3 * o.max_rejects)
+    stall = (rej_n >= limit) & (lam_n >= stall_lam)
+    it_n = it + 1
+    done_n = converged | stall | (it_n >= o.max_iters)
+    nxt = (lam_n, torch.where(accept, c_new, cost), rej_n, acc_n, it_n, done_n)
+    return accept & run, tuple(torch.where(run, n, s) for n, s in zip(nxt, st))
 
-    def update(self, c_new, gsmall=None):
-        """Accept the trial iff it lowers the cost; returns (accept, done).
-        ``gsmall``: an extra convergence test (a vanished gradient)."""
-        o = self.opts
-        accept = c_new < self.cost
-        self.lam = torch.clamp(
-            torch.where(accept, self.lam * o.lam_down, self.lam * o.lam_up),
-            o.lam_min, o.lam_max,
-        )
-        converged = accept & (
-            self.cost - c_new <= o.rtol * torch.clamp(self.cost, min=1e-300)
-        )
-        if gsmall is not None:
-            converged = converged | gsmall
-        self.cost = torch.where(accept, c_new, self.cost)
-        self.rej = torch.where(accept, torch.zeros_like(self.rej), self.rej + 1)
-        self.acc_any = self.acc_any | accept
-        limit = torch.where(self.acc_any, o.max_rejects, 3 * o.max_rejects)
-        stall = (self.rej >= limit) & (self.lam >= self.stall_lam)
-        self.it += 1
-        return accept, bool(converged | stall)
+
+def _status(st):
+    """(stop flag, iteration count) as one (2,) int64 tensor: the host's
+    one read per chunk."""
+    return torch.stack([st[5].to(torch.int64), st[4]])
+
+
+def _write(buffers, values) -> None:
+    for b, v in zip(buffers, values):
+        b.copy_(v)
+
+
+def _take(seq, *sizes):
+    """``seq`` cut into consecutive pieces of these sizes, then the rest."""
+    out, i = [], 0
+    for n in sizes:
+        out.append(list(seq[i : i + n]))
+        i += n
+    out.append(list(seq[i:]))
+    return out
+
+
+def _on_one_card(devices) -> bool:
+    """Whether every shard of ``devices`` lies on one device that takes
+    graphs (a mesh over several cards stays eager)."""
+    devs = {torch.empty(0, device=d).device for d in devices}
+    return len(devs) == 1 and graphs.active(next(iter(devs)))
+
+
+#: solves, chunks replayed or run, iterations that counted and masked
+#: iterations since ``reset_loop_counts`` (all threads)
+_loop_counts = {"solves": 0, "chunks": 0, "iters": 0, "masked": 0}
+_loop_lock = threading.Lock()
+
+
+def loop_counts() -> dict:
+    """The damping loops' solves, chunks (host reads), iterations and the
+    masked iterations after a stop, since the last ``reset_loop_counts``."""
+    return dict(_loop_counts)
+
+
+def reset_loop_counts() -> None:
+    _loop_counts.update(solves=0, chunks=0, iters=0, masked=0)
+
+
+def _device_loop(name, start, chunk, static, problem, state, init, graphed: bool):
+    """Run one LM to its stop and return (final state, n_iters).
+
+    ``start(*static, *problem, *state, *init)`` writes the fresh state into
+    ``state`` in place; ``chunk(*static, n, *problem, *state)`` runs n
+    iterations in place and returns ``_status``.  ``state`` holds example
+    values of the state (the capture's warm-up iterates from them).
+
+    ``graphed``: the chunk is a captured graph of ``CHUNK_ITERS``
+    iterations whose buffers hold ``problem`` and the state, and the start
+    a graph that writes that state; each replay of the chunk is one host
+    read.  Otherwise both run eagerly on stand-in buffers, one iteration
+    per read.  Threads that solve at once take other instances
+    (``graphs.lease``); the state is copied out before the lease ends.
+    The graphs are noted with ``graphs.keep`` under ``name``, which bounds
+    how many frame counts a long-lived process holds graphs for."""
+    n = CHUNK_ITERS if graphed else 1
+    scope = contextlib.nullcontext() if graphed else graphs.no_capture()
+    with graphs.lease(name) as slot, scope:
+        # the capture's warm-up runs one iteration, not a whole chunk
+        steps = graphs.get(chunk, static + (n,), problem + state, slot=slot,
+                           warm=static + (1,))
+        np_ = len(problem)
+        _write(steps.inputs[:np_], problem)
+        first = graphs.get(start, static, init, bound=steps.inputs, slot=slot)
+        _write(first.inputs, init)
+        first.replay()
+        chunks = 0
+        while True:
+            chunks += 1
+            done, it = steps.replay().tolist()
+            if done:
+                break
+        out = [t.clone() for t in steps.inputs[np_:]]
+        graphs.keep(name, slot, (steps, first))
+    with _loop_lock:
+        _loop_counts["solves"] += 1
+        _loop_counts["chunks"] += chunks
+        _loop_counts["iters"] += it
+        _loop_counts["masked"] += chunks * n - it
+    return out, it
 
 
 # --------------------------------------------------------------------------
@@ -241,36 +360,56 @@ def lm_solve(
     hi=None,
     free=None,
     opts: LMOptions = LMOptions(),
+    data=(),
 ):
     """Dense LM over a flat parameter vector ``x0`` (n,).
 
-    ``residual_fn(x) -> (blocks, w)``: residual blocks ``(B, d)`` and
-    per-block weights ``(B,)`` (0 masks a block).  Huber is applied per
-    block.  Returns (x, final_cost, n_iters).
+    ``residual_fn(x, *data) -> (blocks, w)``: residual blocks ``(B, d)``
+    and per-block weights ``(B,)`` (0 masks a block); ``data`` are the
+    tensors it reads, which a captured loop holds in its buffers (so a
+    module-level ``residual_fn`` serves every call of a shape with one
+    graph).  Huber is applied per block.  Returns (x, final_cost, n_iters).
     """
-    n = x0.shape[0]
-    free_m = torch.ones_like(x0) if free is None else free.to(x0.dtype)
+    dt, dev = x0.dtype, x0.device
+    free_m = torch.ones_like(x0) if free is None else free.to(dt)
+    lo = torch.full_like(x0, -torch.inf) if lo is None else lo
+    hi = torch.full_like(x0, torch.inf) if hi is None else hi
+    data = tuple(data)
+    static = (residual_fn, opts, len(data))
+    example = (x0, *_lm_scalars(opts, torch.zeros((), dtype=dt, device=dev)))
+    (x, _, cost, *_), n_iters = _device_loop(
+        "lm", _lm_start, _lm_chunk, static, (lo, hi, free_m, *data), example, (x0,),
+        graphed=graphs.active(dev),
+    )
+    return x, cost, n_iters
 
-    def clamp(x):
-        if lo is not None:
-            x = torch.maximum(x, lo)
-        if hi is not None:
-            x = torch.minimum(x, hi)
-        return x
 
-    def cost_of(x):
-        r, w = residual_fn(x)
-        r2 = torch.sum(r * r, dim=-1)
-        return torch.sum(w * huber_cost(r2, opts.huber_delta))
+def _dense_cost(residual_fn, opts, x, data):
+    r, w = residual_fn(x, *data)
+    r2 = torch.sum(r * r, dim=-1)
+    return torch.sum(w * huber_cost(r2, opts.huber_delta))
+
+
+def _lm_start(residual_fn, opts, n_data, lo, hi, free_m, *rest):
+    """``lm_solve``'s start: the clamped x0, its cost and fresh scalars,
+    written into the state buffers."""
+    data, state, (x0,) = _take(rest, n_data, 7)
+    x = torch.minimum(torch.maximum(x0, lo), hi)
+    _write(state, (x, *_lm_scalars(opts, _dense_cost(residual_fn, opts, x, data))))
+
+
+def _lm_chunk(residual_fn, opts, n_data, n, lo, hi, free_m, *rest):
+    """``n`` iterations of ``lm_solve``'s damping loop on the state
+    buffers, in place; returns ``_status``."""
+    data, state = _take(rest, n_data)
+    x, st = state[0], tuple(state[1:])
 
     def r_aux(x):
-        r, w = residual_fn(x)
+        r, w = residual_fn(x, *data)
         return r, (r, w)
 
-    x = clamp(x0)
-    st = _LMState(cost_of(x), opts, opts.stall_lam)
-    eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
-    while st.it < opts.max_iters:
+    eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+    for _ in range(n):
         J, (r, w) = _serialized(jacfwd(r_aux, has_aux=True))(x)  # J (B, d, n)
         r2 = torch.sum(r * r, dim=-1)
         wtot = w * huber_block_weight(r2, opts.huber_delta)
@@ -279,13 +418,13 @@ def lm_solve(
         g = torch.einsum("bdi,bd,b->i", Jm, r, wtot)
         H = H + eye * (1.0 - free_m)  # unit diag for fixed -> step 0
 
-        dx = cholesky_solve_batched_small(_damped(H, st.lam), -g)
-        x_new = clamp(x + _finite_or_zero(dx) * free_m)
-        accept, done = st.update(cost_of(x_new))
+        dx = cholesky_solve_batched_small(_damped(H, st[0]), -g)
+        x_new = torch.minimum(torch.maximum(x + _finite_or_zero(dx) * free_m, lo), hi)
+        accept, st = _lm_update(opts, opts.stall_lam, st,
+                                _dense_cost(residual_fn, opts, x_new, data))
         x = torch.where(accept, x_new, x)
-        if done:
-            break
-    return x, st.cost, st.it
+    _write(state, (x, *st))
+    return _status(st)
 
 
 # --------------------------------------------------------------------------
@@ -486,46 +625,85 @@ def ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid,
     into contiguous shards over ``devices``: poses and observations stay
     on their shard, each iteration reduces one packed system (``ba_step``)
     and the robust cost on the first device.  F must be a multiple of
-    ``len(devices)``; results on the first device.
+    ``len(devices)``; results on the first device.  The damping loop runs
+    on the device (``_device_loop``), as graphs when every shard lies on
+    one card.
 
     ``mesh_rules``: the JAX package's frame-sharded rules (``ba_step``'s
     step order, and a stall on the rejection count alone, whatever lam).
     ``jac_f32``: float32 Jacobians (see ``ba_solve``).
     """
     dev0 = devices[0]
-    lo, hi, free = lo.to(dev0), hi.to(dev0), free.to(dev0)
-    p3d_r = _PerDevice(p3d)
+    S = len(devices)
     fv_s = _split(frame_valid, devices)
     w_s = [ws * fv[:, None] for ws, fv in zip(_split(w, devices), fv_s)]
-    p2d_s = _split(p2d, devices)
-    fns = [ba_frame_fns(project_fn, p3d_r.on(d), one_focal, jac_f32) for d in devices]
+    problem = (lo.to(dev0), hi.to(dev0), free.to(dev0), *[p3d.to(d) for d in devices],
+               *_split(p2d, devices), *w_s, *fv_s)
+    init = (theta0.to(dev0), *_split(poses0, devices))
+    static = (project_fn, one_focal, opts, tuple(devices), mesh_rules, jac_f32)
+    example = (*init, *_lm_scalars(opts, torch.zeros((), dtype=theta0.dtype, device=dev0)))
+    state, n_iters = _device_loop("ba", _ba_start, _ba_chunk, static, problem, example,
+                                  init, graphed=_on_one_card(devices))
+    theta, poses_s, (_, cost, *_) = _take(state, 1, S)
+    return BAResult(theta[0], _gather(poses_s, dev0), cost, n_iters)
+
+
+def _ba_parts(static, tensors):
+    """``ba_lm``'s flat tensors as (lo, hi, free, p3d_s, p2d_s, w_s, fv_s,
+    the rest) and the shards' residual functions."""
+    project_fn, one_focal, _, devices, _, jac_f32 = static
+    S = len(devices)
+    (lo, hi, free), p3d_s, p2d_s, w_s, fv_s, rest = _take(tensors, 3, S, S, S, S)
+    fns = [ba_frame_fns(project_fn, p3d_s[s], one_focal, jac_f32) for s in range(S)]
+    return lo, hi, free, p2d_s, w_s, fv_s, rest, fns
+
+
+def _ba_cost(static, fns, theta, poses_s, p2d_s, w_s):
+    opts, devices = static[2], static[3]
+    th = _PerDevice(theta)
+    local = []
+    for s, d in enumerate(devices):
+        r = fns[s][0](th.on(d), poses_s[s], p2d_s[s])
+        r2 = torch.sum(r * r, dim=-1)
+        local.append(torch.sum(w_s[s] * huber_cost(r2, opts.huber_delta)))
+    return _reduce(local, devices[0])
+
+
+def _ba_start(*args):
+    """``ba_lm``'s start: the clamped theta0, the poses0 shards, their cost
+    and fresh scalars, written into the state buffers."""
+    static, tensors = args[:6], args[6:]
+    S = len(static[3])
+    lo, hi, _, p2d_s, w_s, _, rest, fns = _ba_parts(static, tensors)
+    state, (theta0,), poses0 = _take(rest, 1 + S + 6, 1)
+    theta = torch.clamp(theta0, lo, hi)
+    cost = _ba_cost(static, fns, theta, poses0, p2d_s, w_s)
+    _write(state, (theta, *poses0, *_lm_scalars(static[2], cost)))
+
+
+def _ba_chunk(*args):
+    """``n`` iterations of ``ba_lm``'s damping loop on the state buffers,
+    in place; returns ``_status``."""
+    static, n, tensors = args[:6], args[6], args[6 + 1:]
+    _, _, opts, devices, mesh_rules, _ = static
+    S = len(devices)
+    lo, hi, free, p2d_s, w_s, fv_s, state, fns = _ba_parts(static, tensors)
+    (theta,), poses_s, st = _take(state, 1, S)
+    st = tuple(st)
     jacs = [jac for _, jac in fns]
-
-    def cost_of(theta, poses_s):
-        th = _PerDevice(theta)
-        local = []
-        for s, d in enumerate(devices):
-            r = fns[s][0](th.on(d), poses_s[s], p2d_s[s])
-            r2 = torch.sum(r * r, dim=-1)
-            local.append(torch.sum(w_s[s] * huber_cost(r2, opts.huber_delta)))
-        return _reduce(local, dev0)
-
-    theta = torch.clamp(theta0.to(dev0), lo, hi)
-    poses_s = _split(poses0, devices)
-    st = _LMState(cost_of(theta, poses_s), opts, 0.0 if mesh_rules else opts.stall_lam)
-    while st.it < opts.max_iters:
-        dth, po_new = ba_step(jacs, theta, poses_s, p2d_s, w_s, fv_s, free, st.lam,
+    stall_lam = 0.0 if mesh_rules else opts.stall_lam
+    for _ in range(n):
+        dth, po_new = ba_step(jacs, theta, poses_s, p2d_s, w_s, fv_s, free, st[0],
                               devices, opts.huber_delta, mesh_rules)
         th_new = torch.clamp(theta + dth * free, lo, hi)
-        accept, done = st.update(cost_of(th_new, po_new))
+        accept, st = _lm_update(opts, stall_lam, st,
+                                _ba_cost(static, fns, th_new, po_new, p2d_s, w_s))
         theta = torch.where(accept, th_new, theta)
         acc = _PerDevice(accept)
         poses_s = [torch.where(acc.on(d), pn, po)
                    for d, pn, po in zip(devices, po_new, poses_s)]
-        if done:
-            break
-    return BAResult(theta, _gather(poses_s, dev0), st.cost, st.it)
-
+    _write(state, (theta, *poses_s, *st))
+    return _status(st)
 
 
 def _as(dtype, *tensors):
@@ -723,17 +901,18 @@ def multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
     one packed (U | Schur correction | rhs | gradient) system of size
     (2M+2, M) and the robust cost on the first device, where the M x M
     solve runs once.  F must be a multiple of ``len(devices)`` (padding
-    frames carry frame_valid = 0); results on the first device.
+    frames carry frame_valid = 0); results on the first device.  The
+    damping loop runs on the device (``_device_loop``), as graphs when
+    every shard lies on one card.
 
     ``mesh_rules``: stall on the rejection count alone, whatever lam (the
     JAX package's frame-sharded rule).  ``jac_f32``: float32 Jacobians
     (see ``ba_solve``).
     """
     C = p2d.shape[0]
-    k = theta0.shape[1]
     dtype = theta0.dtype
-    M = C * k + C * 6
     dev0 = devices[0]
+    S = len(devices)
     lo, hi, free = lo.to(dev0), hi.to(dev0), free.to(dev0)
     w = w * cam_frame_valid[:, :, None] * frame_valid[None, :, None]
     # e_0 is pinned to identity; its columns get a unit diagonal below
@@ -742,31 +921,73 @@ def multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
          torch.ones((C - 1, 6), dtype=dtype, device=dev0)], dim=0,
     )
     unit_fixed = torch.diag(1.0 - torch.cat([free.reshape(-1), ext_free.reshape(-1)]))
-    p3d_r, free_r, ext_free_r = _PerDevice(p3d), _PerDevice(free), _PerDevice(ext_free)
-    fv_s = _split(frame_valid, devices)
-    p2d_s = _split(p2d, devices, dim=1)
-    w_s = _split(w, devices, dim=1)
-    fns = [multi_frame_fns(project_fn, p3d_r.on(d), one_focal, C, jac_f32) for d in devices]
-    eye6 = [torch.eye(6, dtype=dtype, device=d) for d in devices]
+    problem = (lo, hi, free, ext_free, unit_fixed, *[p3d.to(d) for d in devices],
+               *_split(p2d, devices, dim=1), *_split(w, devices, dim=1),
+               *_split(frame_valid, devices))
+    init = (theta0.to(dev0), ext0.to(dev0), *_split(poses0, devices))
+    static = (project_fn, one_focal, opts, tuple(devices), mesh_rules, jac_f32)
+    example = (*init, *_lm_scalars(opts, torch.zeros((), dtype=dtype, device=dev0)))
+    state, n_iters = _device_loop("multi", _multi_start, _multi_chunk, static, problem,
+                                  example, init, graphed=_on_one_card(devices))
+    (theta, ext), poses_s, (_, cost, *_) = _take(state, 2, S)
+    return MultiBAResult(theta, ext, _gather(poses_s, dev0), cost, n_iters)
 
-    def cost_of(theta, ext, poses_s):
-        th, ex = _PerDevice(theta), _PerDevice(ext)
-        local = []
-        for s, d in enumerate(devices):
-            total = torch.zeros((), dtype=dtype, device=d)
-            for c in range(C):
-                r = fns[s][c][0](th.on(d)[c], ex.on(d)[c], poses_s[s], p2d_s[s][c])
-                r2 = torch.sum(r * r, dim=-1)
-                total = total + torch.sum(w_s[s][c] * huber_cost(r2, opts.huber_delta))
-            local.append(total)
-        return _reduce(local, dev0)
 
-    theta = torch.clamp(theta0.to(dev0), lo, hi)
-    ext = ext0.to(dev0)
-    poses_s = _split(poses0, devices)
-    st = _LMState(cost_of(theta, ext, poses_s), opts, 0.0 if mesh_rules else opts.stall_lam)
-    while st.it < opts.max_iters:
-        th, ex, lm = _PerDevice(theta), _PerDevice(ext), _PerDevice(st.lam)
+def _multi_parts(static, tensors):
+    """``multi_ba_lm``'s flat tensors as (lo, hi, free, ext_free,
+    unit_fixed, p2d_s, w_s, fv_s, the rest) and the shards' per-camera
+    functions."""
+    project_fn, one_focal, _, devices, _, jac_f32 = static
+    S = len(devices)
+    fixed, p3d_s, p2d_s, w_s, fv_s, rest = _take(tensors, 5, S, S, S, S)
+    C = p2d_s[0].shape[0]
+    fns = [multi_frame_fns(project_fn, p3d_s[s], one_focal, C, jac_f32) for s in range(S)]
+    return (*fixed, p2d_s, w_s, fv_s, rest, fns)
+
+
+def _multi_cost(static, fns, theta, ext, poses_s, p2d_s, w_s):
+    opts, devices = static[2], static[3]
+    th, ex = _PerDevice(theta), _PerDevice(ext)
+    local = []
+    for s, d in enumerate(devices):
+        total = torch.zeros((), dtype=theta.dtype, device=d)
+        for c in range(theta.shape[0]):
+            r = fns[s][c][0](th.on(d)[c], ex.on(d)[c], poses_s[s], p2d_s[s][c])
+            r2 = torch.sum(r * r, dim=-1)
+            total = total + torch.sum(w_s[s][c] * huber_cost(r2, opts.huber_delta))
+        local.append(total)
+    return _reduce(local, devices[0])
+
+
+def _multi_start(*args):
+    """``multi_ba_lm``'s start: the clamped theta0, ext0, the poses0 shards,
+    their cost and fresh scalars, written into the state buffers."""
+    static, tensors = args[:6], args[6:]
+    S = len(static[3])
+    lo, hi, _, _, _, p2d_s, w_s, _, rest, fns = _multi_parts(static, tensors)
+    state, (theta0, ext0), poses0 = _take(rest, 2 + S + 6, 2)
+    theta = torch.clamp(theta0, lo, hi)
+    cost = _multi_cost(static, fns, theta, ext0, poses0, p2d_s, w_s)
+    _write(state, (theta, ext0, *poses0, *_lm_scalars(static[2], cost)))
+
+
+def _multi_chunk(*args):
+    """``n`` iterations of ``multi_ba_lm``'s damping loop on the state
+    buffers, in place; returns ``_status``."""
+    static, n, tensors = args[:6], args[6], args[6 + 1:]
+    _, _, opts, devices, mesh_rules, _ = static
+    S = len(devices)
+    lo, hi, free, ext_free, unit_fixed, p2d_s, w_s, fv_s, state, fns = _multi_parts(
+        static, tensors)
+    (theta, ext), poses_s, st = _take(state, 2, S)
+    st = tuple(st)
+    C, k = theta.shape
+    M = C * k + C * 6
+    free_r, ext_free_r = _PerDevice(free), _PerDevice(ext_free)
+    eye6 = [torch.eye(6, dtype=theta.dtype, device=d) for d in devices]
+    stall_lam = 0.0 if mesh_rules else opts.stall_lam
+    for _ in range(n):
+        th, ex, lm = _PerDevice(theta), _PerDevice(ext), _PerDevice(st[0])
         packed, local = [], []
         for s, d in enumerate(devices):
             U, g_x, A, B, g_p = _multi_shard_blocks(
@@ -780,14 +1001,14 @@ def multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
             rhs = -(g_x - torch.einsum("fik,fi->k", Ainv_Bt, g_p))
             packed.append(torch.cat([U, corr, rhs[None, :], g_x[None, :]], dim=0))
             local.append((Ainv_Bt, Ainv_g))
-        tot = _reduce(packed, dev0)
+        tot = _reduce(packed, devices[0])
         U, corr, rhs, g_x = tot[:M], tot[M : 2 * M], tot[2 * M], tot[2 * M + 1]
-        S = _damped(U + unit_fixed, st.lam) - corr
+        S_ = _damped(U + unit_fixed, st[0]) - corr
         # Jacobi-scale the reduced solve: parameter magnitudes span ~1e5
         # (focal vs distortion vs extrinsic rotation); D S D has a unit
         # diagonal and solves identically
-        dg = torch.sqrt(torch.clamp(torch.diagonal(S), min=1e-12))
-        Sn = S / dg[:, None] / dg[None, :]
+        dg = torch.sqrt(torch.clamp(torch.diagonal(S_), min=1e-12))
+        Sn = S_ / dg[:, None] / dg[None, :]
         dx = cholesky_solve_batched_small(Sn, rhs / dg) / dg
         dxr = _PerDevice(dx)
         po_new = []
@@ -800,16 +1021,17 @@ def multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
         ex_new = ext + dx[C * k :].reshape(C, 6) * ext_free
         # stop on a tiny relative decrease OR a vanished gradient (large
         # joint problems keep finding micro-improvements at the noise floor)
-        gsmall = torch.max(torch.abs(g_x)) <= 1e-9 * torch.clamp(st.cost, min=1.0)
-        accept, done = st.update(cost_of(th_new, ex_new, po_new), gsmall)
+        gsmall = torch.max(torch.abs(g_x)) <= 1e-9 * torch.clamp(st[1], min=1.0)
+        accept, st = _lm_update(
+            opts, stall_lam, st,
+            _multi_cost(static, fns, th_new, ex_new, po_new, p2d_s, w_s), gsmall)
         theta = torch.where(accept, th_new, theta)
         ext = torch.where(accept, ex_new, ext)
         acc = _PerDevice(accept)
         poses_s = [torch.where(acc.on(d), pn, po)
                    for d, pn, po in zip(devices, po_new, poses_s)]
-        if done:
-            break
-    return MultiBAResult(theta, ext, _gather(poses_s, dev0), st.cost, st.it)
+    _write(state, (theta, ext, *poses_s, *st))
+    return _status(st)
 
 
 def ba_solve_multi_mixed(

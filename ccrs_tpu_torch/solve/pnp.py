@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from .. import graphs
 from . import se3
 from .lm import cho_solve, cholesky_nan
 
@@ -181,5 +182,6 @@ def solve_pnp_planar_batch(p3d, p2d_norm, w):
     """``solve_pnp_planar`` over a leading frame axis: (F, N, 3), (F, N, 2)
     and (F, N) give (rvec (F, 3), tvec (F, 3)).  The JAX package's name for
     its vmapped solver; ``solve_pnp_planar`` batches over leading axes
-    itself."""
-    return solve_pnp_planar(p3d, p2d_norm, w)
+    itself.  On the card one captured graph per shape, as the JAX
+    function is one executable."""
+    return graphs.call(solve_pnp_planar, (), (p3d, p2d_norm, w))

@@ -22,20 +22,23 @@ entry points a user calls, at the benchmark's sizes:
   detection), and the cold composition (``CCRS_TRACK=0 --no-speculate
   --step 4``, 160 frames per camera);
 - phase fresh: the user's real first run.  On the cli phase's dataset,
-  ``python -m ccrs_tpu_torch <ds> --model eucm --cam-num 2 --platform cuda
-  --no-rerun --seed 1`` as a SUBPROCESS, twice, with ``CCRS_PREWARM=1``
-  and ``0`` (four runs in turns until the sampling phase needed the
-  time): each run's wall time from
-  process start to exit, its "detecting feature took" line and stage
-  timers; gates: exit code 0 on the card, ``cam0.json``, ``cam1.json`` and
-  ``extrinsics.json`` byte for byte equal across the runs (warm-up changes
-  timing, never results), fx within 1%, medians below 0.3 px, no warm-up
-  or speculation error, the threshold kernel launched (by the run, and by
-  the warm-up where it is on).  No gate on time;
+  the CLI (``<ds> --model eucm --cam-num 2 --platform cuda --no-rerun
+  --seed 1``) as a SUBPROCESS, seven times (``FRESH_RUNS``): with
+  ``CCRS_PREWARM=1``, then with ``0`` eager, solvers eager, graphs,
+  graphs, solvers eager, eager (each run calls ``cli.main`` from a
+  ``python -c`` wrapper, ``FRESH_CHILD``: eager inside ``graphs.eager()``,
+  solvers eager inside ``solvers_eager()``, which leaves detection its
+  graphs): each run's wall time from process start to exit, its
+  "detecting feature took" line and stage timers, and the graphs it holds
+  at its end with their pools; gates: exit code 0 on the card, ``cam0.json``, ``cam1.json`` and
+  ``extrinsics.json`` byte for byte equal across the runs (warm-up and
+  graphs change timing, never results), fx within 1%, medians below 0.3
+  px, no warm-up or speculation error, the threshold kernel launched (by
+  the run, and by the warm-up where it is on).  No gate on time;
 - phase rig: ``bench_multicam.py``'s joint BA at its full size (8 cameras
   x 1000 frames, 36 tags x 4 corners, 0.75 visibility, 0.1 px noise),
   generated on the card (``testdata.rig_problem``), through
-  ``ba_solve_multi`` (float64) and ``ba_solve_multi_mixed``, once each, and
+  ``ba_solve_multi`` (float64, its loop eager) and ``ba_solve_multi_mixed``, once each, and
   ``multi_ba_sharded_mixed`` on the mesh; gates per solve: focal
   < 3e-3, extrinsic < 3e-3, 0.07 < RMS < 0.13 px; mixed against float64
   RMS within 1e-6 px; sharded mixed against mixed theta within 1e-8
@@ -116,6 +119,29 @@ entry points a user calls, at the benchmark's sizes:
   is slower by more than the spread); then the tracked 512 main path with
   graphs on natural chunks (one decode graph per chunk size) against the
   JAX plan, in turns;
+- phase solver: calibration's captured graphs (``solve/lm.py``'s device
+  loop: a start graph and a graph of ``CHUNK_ITERS`` LM iterations per
+  shape, one host read per replay; ``graphs.call`` for the pose init, the
+  init attempt's pieces, the conversion's projections) against eager on
+  the 512 phase's problems: its final ``ba_solve`` problem, one
+  ``try_init_camera`` on its two init frames with fixed draws,
+  ``convert_model`` from that UCM to EUCM and to KB4, and ``calib_camera``
+  as the speculation calls it (its subsampled frames, float32 pose init)
+  and as the final solve calls it (warm and cold); per problem a
+  first run from an empty cache (captures, capture seconds, pools) and a
+  second that must capture nothing, then eager and graphs in turns: every
+  result and ``n_iters`` bit-equal to eager, best of 3 walls and the
+  spread, LM iterations, host reads and masked iterations, host launch
+  calls, card time per iteration and busy share (torch.profiler).  Then
+  the rig's float64 ``ba_solve_multi`` graphed (first and second run)
+  against the rig phase's eager solve, bit for bit; the chunk length
+  swept over ``SOLVER_KS`` on the 512 problem and the init attempt; and
+  the 512 main path, tracked and cold, with solver graphs against solver
+  eager (this script's ``solvers_eager``: detection keeps its graphs) in
+  turns, results bit-equal.  A line gives the default rule's verdict
+  (eager if solver graphs are slower than solvers eager beyond the spread
+  on either 512 main path or on the fresh phase's runs with the warm-up
+  off);
 - phase undistort: EuRoC cam0's undistortion map from 752x480 to 1024x1024
   and the remap of one cli frame, on the card and on the CPU (maps within
   1e-3 px, pixels within 1 gray level), with their times;
@@ -179,6 +205,7 @@ kernel, the host quad extractor and the PNG unfilter routine into
 directory that is removed at the end).
 Prints stage times, detector stats and gates per run, a JSON line of the
 fresh and rig phases' numbers, one of the bench phase's two result lines,
+one of the solver phase's,
 a JSON line of kernel results, then as its last line ``{"ok": true,
 "device": {...}}``.
 Exits non-zero on any failed phase, and when no CUDA device is available.
@@ -223,8 +250,27 @@ N_MESH_DETECT = 128
 FLAT_MIB = 256
 #: cli cam0 frames the colour phase writes as RGB and as gray PNGs
 N_COLOUR = 48
-#: CCRS_PREWARM of the fresh phase's subprocess runs, in this order
-FRESH_PREWARM = ("1", "0")
+#: the solver phase: the init attempt's RANSAC draws, and the chunk
+#: lengths swept
+INIT_DRAWS_SEED = 7
+SOLVER_KS = (2, 4, 8)
+#: the fresh phase's runs, in this order: (CCRS_PREWARM, mode): "graphs"
+#: (the card's default), "eager" (everything eager) or "solvers_eager"
+#: (calibration eager, detection graphed: what calibration's graphs do alone)
+FRESH_RUNS = (("1", "graphs"), ("0", "eager"), ("0", "solvers_eager"), ("0", "graphs"),
+              ("0", "graphs"), ("0", "solvers_eager"), ("0", "eager"))
+#: a fresh run's process: the CLI (``cli.main``, as ``python -m
+#: ccrs_tpu_torch`` runs it) inside the mode's scope (argv: mode, then the
+#: CLI's arguments), then the graphs it holds and their pools
+FRESH_CHILD = (
+    "import contextlib, json, sys\n"
+    "from chip_smoke import solvers_eager\n"
+    "from ccrs_tpu_torch import cli, graphs\n"
+    "scope = {'graphs': contextlib.nullcontext, 'eager': graphs.eager,\n"
+    "         'solvers_eager': solvers_eager}[sys.argv[1]]\n"
+    "with scope():\n"
+    "    cli.main(sys.argv[2:])\n"
+    "print('graphs held: ' + json.dumps(graphs.counts()))\n")
 #: bench_multicam.py's rig: cameras, frames per camera, visibility of cameras > 0
 RIG = dict(n_cams=8, n_frames=1000, vis_frac=0.75)
 #: the bench phase's programs (each in a fresh process, at full size) and
@@ -270,11 +316,17 @@ def card_label() -> str:
 
 
 def sync_time(torch, fn):
-    """Run fn, synchronize the card, return (result, seconds)."""
-    torch.cuda.synchronize()
+    """Run fn, synchronize the card, return (result, seconds).  The
+    synchronize waits for a capture on another thread to end
+    (``graphs.synchronize``): the speculation thread may be capturing its
+    solver graphs when detection returns, and CUDA fails a device-wide
+    synchronize while any stream captures."""
+    from ccrs_tpu_torch import graphs
+
+    graphs.synchronize()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    graphs.synchronize()
     return out, time.perf_counter() - t0
 
 
@@ -997,27 +1049,31 @@ def run_cli_phase(card):
 
 
 def run_fresh_phase(tmp, ds, gt, card):
-    """The CLI as a user starts it: a new process per run, on the cli
-    phase's dataset, with the warm-up on and off in turns.  Returns one
-    record per run (wall seconds, the lines it printed about itself, its
-    threshold launches)."""
+    """The CLI as a user starts it: a new process per run (``cli.main`` in
+    a ``python -c`` wrapper, ``FRESH_CHILD``), on the cli phase's dataset:
+    the warm-up on, then with it off the card's default (graphs),
+    everything eager (``graphs.eager()``) and calibration eager with
+    detection graphed (``solvers_eager``) in turns (``FRESH_RUNS``).  Every
+    run's artifacts equal byte for byte.  Returns one record per run (wall
+    seconds, the lines it printed about itself, its threshold launches,
+    the graphs it held at its end and their pools)."""
     from ccrs_tpu_torch.models import model_from_json
 
     root = os.path.dirname(os.path.abspath(__file__))
     runs, first = [], None
-    for i, prewarm in enumerate(FRESH_PREWARM):
-        tag = f"[fresh {i}, CCRS_PREWARM={prewarm}] ({card})"
+    for i, (prewarm, mode) in enumerate(FRESH_RUNS):
+        tag = f"[fresh {i}, CCRS_PREWARM={prewarm}, {mode}] ({card})"
         out = os.path.join(tmp, f"fresh{i}")
         env = dict(os.environ)
         env.update(CCRS_PREWARM=prewarm, CCRS_TIMING="1",
                    PYTHONPATH=root + os.pathsep + env.get("PYTHONPATH", ""))
         env.pop("CCRS_TRACK", None)
+        argv = [ds, "--model", "eucm", "--cam-num", "2", "--platform", "cuda", "--no-rerun",
+                "--seed", "1", "-o", out]
+        cmd = [sys.executable, "-c", FRESH_CHILD, mode, *argv]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "ccrs_tpu_torch", ds, "--model", "eucm", "--cam-num", "2",
-             "--platform", "cuda", "--no-rerun", "--seed", "1", "-o", out],
-            capture_output=True, text=True, env=env, cwd=tmp, timeout=600,
-        )
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=tmp,
+                              timeout=600)
         wall = time.perf_counter() - t0
         text = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -1031,8 +1087,10 @@ def run_fresh_phase(tmp, ds, gt, card):
         detect = re.search(r"detecting feature took ([0-9.]+) sec", proc.stdout)
         warm = re.search(r"prewarm took ([0-9.]+) sec", proc.stdout)
         count = re.search(r"threshold kernel launches: (\d+) \(prewarm (\d+)\)", proc.stdout)
-        if not (detect and count):
-            raise RuntimeError(f"{tag} printed no detection time or launch count")
+        held = re.search(r"^graphs held: (.*)$", proc.stdout, re.M)
+        if not (detect and count and held):
+            raise RuntimeError(f"{tag} printed no detection time, launch count or graphs held")
+        held = json.loads(held.group(1))
         total, by_warmup = int(count.group(1)), int(count.group(2))
         if (warm is not None) != (prewarm == "1") or (by_warmup > 0) != (prewarm == "1"):
             raise RuntimeError(f"{tag} warm-up ran {warm is not None} with {by_warmup} launches")
@@ -1045,7 +1103,9 @@ def run_fresh_phase(tmp, ds, gt, card):
         print(f"{tag} wall {wall:.3f} s from process start to exit; detecting feature took "
               f"{float(detect.group(1)):.3f} s; prewarm "
               f"{'took ' + warm.group(1) + ' s' if warm else 'off'}; threshold kernel launches "
-              f"{total} ({by_warmup} by the warm-up)")
+              f"{total} ({by_warmup} by the warm-up); at its end {held['graphs']} graphs "
+              f"held, pools {held['pool_mib']:.1f} MiB ({held['captures']} captures in "
+              f"{held['capture_s']:.3f} s)")
         for name in sorted(stages, key=lambda k: -stages[k]):
             print(f"{tag}   {name:26s} {stages[name]:8.3f} s")
 
@@ -1067,14 +1127,17 @@ def run_fresh_phase(tmp, ds, gt, card):
               f"cam1.json, extrinsics.json equal run 0's byte for byte")
         if not (max(fx) < 0.01 and len(medians) == 2 and max(medians) < 0.3):
             raise RuntimeError(f"{tag} focal {fx} or medians {medians} off")
-        runs.append(dict(prewarm=prewarm, wall_s=wall, detect_s=float(detect.group(1)),
+        runs.append(dict(prewarm=prewarm, mode=mode, wall_s=wall,
+                         detect_s=float(detect.group(1)),
                          prewarm_s=float(warm.group(1)) if warm else None,
                          launches=total - by_warmup, launches_prewarm=by_warmup,
-                         stages=stages))
-    on = [r["wall_s"] for r in runs if r["prewarm"] == "1"]
-    off = [r["wall_s"] for r in runs if r["prewarm"] == "0"]
-    print(f"[fresh] ({card}) process wall, CCRS_PREWARM=1: {', '.join(f'{t:.3f}' for t in on)} s; "
-          f"CCRS_PREWARM=0: {', '.join(f'{t:.3f}' for t in off)} s (in turns; no gate on time)")
+                         stages=stages, graphs_held=held))
+    walls = {}
+    for r in runs:
+        walls.setdefault(f"CCRS_PREWARM={r['prewarm']}, {r['mode']}", []).append(r["wall_s"])
+    print(f"[fresh] ({card}) process wall: " + "; ".join(
+        f"{k}: {', '.join(f'{t:.3f}' for t in v)} s" for k, v in walls.items())
+        + " (in turns; no gate on time)")
     return runs
 
 
@@ -1109,10 +1172,12 @@ def solved_model(model, res, frames):
 
 
 def run_rig_phase(card, run512, board):
-    """bench_multicam.py's joint BA at full size through the float64 and
-    the mixed-precision solver and through the sharded mixed solver, then
-    the 512 phase's final problem through ``ba_solve`` and
-    ``ba_solve_mixed``.  Returns the numbers it printed."""
+    """bench_multicam.py's joint BA at full size through the float64 (its
+    solver eager: the solver phase replays it as graphs) and the
+    mixed-precision solver and through the sharded mixed solver, then the
+    512 phase's final problem through ``ba_solve`` and ``ba_solve_mixed``.
+    Returns (the numbers it printed, the eager float64 solve: result,
+    seconds, iterations)."""
     import torch
 
     from ccrs_tpu_torch.models.projections import project_fn
@@ -1155,7 +1220,9 @@ def run_rig_phase(card, run512, board):
     # one solve each: the bench phase times the mixed route alone in a
     # fresh process (bench_multicam_torch.py)
     for name, fn in (("float64", ba_solve_multi), ("mixed", ba_solve_multi_mixed)):
-        results[name], rec = solve(name, fn)
+        # the float64 solve eagerly: the solver phase replays it as graphs
+        with solvers_eager() if name == "float64" else contextlib.nullcontext():
+            results[name], rec = solve(name, fn)
         solves.append(rec)
     mesh = pmesh.make_mesh()
     if len(mesh) == 1:
@@ -1195,9 +1262,11 @@ def run_rig_phase(card, run512, board):
     print(f"{tag1} rms spread over the three solvers {spread:.3e} px")
     if not (spread < 1e-6):
         raise RuntimeError(f"{tag1} the solvers' optima differ by {spread:.3e} px")
+    rig_eager = dict(result=results["float64"], seconds=solves[0]["seconds"],
+                     iters=solves[0]["iters"])
     return dict(problem=dict(RIG, residuals=solves[0]["residuals"], reduced_dim=M),
                 solves=solves, rms_mixed_minus_f64=d_rms, sharded_theta_rel=rel,
-                single_512=single, single_512_rms_spread=spread)
+                single_512=single, single_512_rms_spread=spread), rig_eager
 
 
 def stage_at(path, line):
@@ -2417,6 +2486,330 @@ def run_graphs_phase(card, frames512, frames1024, cli_frames, board):
     return result, launches
 
 
+@contextlib.contextmanager
+def solvers_eager():
+    """Inside the block the solvers (``solve/lm.py``'s device loop and every
+    ``graphs.call``) run eagerly on every thread while the detect path
+    keeps its graphs: this script's own switch for the comparison, since
+    ``graphs.eager()`` turns both off.  The shared core's ``active``
+    answers False; the detect path reads its own binding of it."""
+    from ccrs_tpu_torch import graphs
+
+    real = graphs.active
+    graphs.active = lambda where: False
+    try:
+        yield
+    finally:
+        graphs.active = real
+
+
+def result_bits(out):
+    """The numbers of a solver result, as numpy arrays for a bit-for-bit
+    comparison: a BAResult / MultiBAResult (n_iters included), a model,
+    (model, rtvecs), or a tuple of tensors."""
+    import torch
+
+    from ccrs_tpu_torch.models import GenericModel
+
+    if out is None:
+        return [np.array([np.nan])]
+    if isinstance(out, GenericModel):
+        return [out.params]
+    if isinstance(out, tuple) and len(out) == 2 and isinstance(out[0], GenericModel):
+        model, rtvecs = out
+        frames = sorted(rtvecs)
+        return [model.params, np.array(frames, float)] + [
+            np.concatenate([rtvecs[f].rvec, rtvecs[f].tvec]) for f in frames]
+    if hasattr(out, "n_iters"):
+        return [t.cpu().numpy() for t in out[:-2 if hasattr(out, "n_polish") else -1]
+                if isinstance(t, torch.Tensor)] + [np.array([out.n_iters, out.n_polish])]
+    return [np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t) for t in out]
+
+
+def same_bits(a, b) -> bool:
+    """Whether two ``result_bits`` lists hold the same bits."""
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+        for x, y in zip(a, b))
+
+
+def run_solver_phase(card, frames512, run512, board, rig_eager):
+    """The calibration executables as captured graphs (``solve/lm.py``'s
+    device loop, ``graphs.call``; the card's default) against eager on
+    the problems of the 512 phase: its final ``ba_solve`` problem, one
+    init attempt on its two init frames with fixed draws, ``convert_model``
+    from the init's UCM to EUCM (analytic) and to KB4 (the grid fit's
+    ``lm_solve``), ``calib_camera`` as the speculative solve and as the
+    final solve call it (warm and cold); then the rig's float64 ``ba_solve_multi`` graphed against the rig
+    phase's eager solve (``rig_eager``).  Per problem: a first run from an
+    empty graph cache (captures, capture seconds, pools) and a second one
+    (it must capture nothing), then eager and graphs in turns (eager,
+    graphs, graphs, eager, eager, graphs): results bit-equal to eager,
+    ``n_iters`` equal, best of 3 walls and the spread; one profiled run of
+    each (host launch calls, card time and busy share, per LM iteration);
+    the masked iterations.  Then the chunk length swept over
+    ``SOLVER_KS`` on the 512 problem and the init attempt, and the 512
+    main path, tracked and cold, with solver graphs against eager in turns
+    after one untimed run of each (results bit-equal).  Returns (numbers,
+    threshold launches)."""
+    import torch
+
+    from ccrs_tpu_torch import graphs
+    from ccrs_tpu_torch.calib import calib_camera
+    from ccrs_tpu_torch.calib.convert import convert_model
+    from ccrs_tpu_torch.calib.frames import FrameBatch
+    from ccrs_tpu_torch.calib.initialize import find_best_two_frames, try_init_camera
+    from ccrs_tpu_torch.calib.pipeline import spec_stride
+    from ccrs_tpu_torch.models import zeros_like_model
+    from ccrs_tpu_torch.models.projections import project_fn
+    from ccrs_tpu_torch.solve import lm
+    from ccrs_tpu_torch.testdata import rig_problem
+
+    t_phase = time.perf_counter()
+    batch, model, rtvecs = run512["batch"], run512["model"], run512["rtvecs"]
+    proj = project_fn("eucm")
+    sargs = single_problem(board, batch, model, rtvecs, "cuda")
+    f0, f1 = find_best_two_frames(batch)
+
+    def init():
+        gen = torch.Generator(device="cuda").manual_seed(INIT_DRAWS_SEED)
+        return try_init_camera(board, batch, f0, f1, gen, device="cuda")
+
+    with solvers_eager():
+        ucm = init()
+    if ucm is None:
+        raise RuntimeError(f"[solver] ({card}) the init attempt on frames {f0}, {f1} failed")
+    seed = zeros_like_model("eucm")
+    seed.set_w_h(batch.width, batch.height)
+    convert_model(ucm, seed, device="cuda")
+    stride = spec_stride(batch.n_frames)
+    sub = FrameBatch(batch.time_ns[::stride], batch.p2d[::stride], batch.mask[::stride],
+                     batch.width, batch.height)
+    F = batch.n_frames
+    warm_poses, warm_valid = np.zeros((F, 6)), np.zeros(F)
+    for f, rt in rtvecs.items():
+        warm_poses[f], warm_valid[f] = np.concatenate([rt.rvec, rt.tvec]), 1.0
+
+    def convert(name):
+        tgt = zeros_like_model(name)
+        tgt.set_w_h(batch.width, batch.height)
+        convert_model(ucm, tgt, device="cuda")
+        return tgt
+
+    problems = [
+        (f"ba_solve, 512 problem ({F} frames)", lambda: lm.ba_solve(proj, *sargs)),
+        (f"try_init_camera, frames {f0} and {f1}", init),
+        ("convert_model ucm -> eucm", lambda: convert("eucm")),
+        ("convert_model ucm -> kb4", lambda: convert("kb4")),
+        (f"calib_camera as the speculation calls it ({sub.n_frames} frames)",
+         lambda: calib_camera(board, sub, seed, False, 0, False, polish_iters=2,
+                              pose_init_f32=True, device="cuda")),
+        (f"calib_camera as the final solve calls it, warm ({F} frames)",
+         lambda: calib_camera(board, batch, model, False, 0, False, warm_poses=warm_poses,
+                              warm_valid=warm_valid,
+                              skip_pose_init=bool(np.all(warm_valid > 0)), device="cuda")),
+        (f"calib_camera as the final solve calls it, cold ({F} frames)",
+         lambda: calib_camera(board, batch, seed, False, 0, False, device="cuda")),
+    ]
+    result, failed = {"chunk_iters": lm.CHUNK_ITERS, "problems": []}, []
+    print(f"[solver] ({card}) the LM's chunk: CHUNK_ITERS = {lm.CHUNK_ITERS} iterations per "
+          "captured graph, one host read per replay")
+
+    def measured(fn, mode):
+        with solvers_eager() if mode == "eager" else contextlib.nullcontext():
+            lm.reset_loop_counts()
+            out, wall = sync_time(torch, fn)
+            return out, wall, lm.loop_counts()
+
+    for name, fn in problems:
+        tag = f"[solver {name}] ({card})"
+        entry = dict(problem=name)
+        graphs.reset()
+        torch.cuda.empty_cache()
+        counts = []
+        for i in range(2):
+            graphs.reset_counts()
+            out, wall, loops = measured(fn, "graphs")
+            counts.append(dict(graphs.counts(), wall_s=wall, **loops))
+        entry.update(first_run=counts[0], second_run=counts[1])
+        print(f"{tag} first run {counts[0]['wall_s']:.3f} s: {counts[0]['captures']} captures in "
+              f"{counts[0]['capture_s']:.3f} s; second run {counts[1]['wall_s']:.3f} s, captured "
+              f"{counts[1]['captures']}, replayed {counts[1]['replays']}; {counts[1]['graphs']} "
+              f"graphs held, pools {counts[1]['pool_mib']:.1f} MiB")
+        if counts[1]["captures"] != 0:
+            failed.append(f"{tag} the second run captured {counts[1]['captures']} graphs")
+        runs = {"graphs": [], "eager": []}
+        ref = None
+        for mode in ("eager", "graphs", "graphs", "eager", "eager", "graphs"):
+            out, wall, loops = measured(fn, mode)
+            bits = result_bits(out)
+            if ref is None:
+                ref = (bits, loops["iters"])
+            if not same_bits(bits, ref[0]) or loops["iters"] != ref[1]:
+                failed.append(f"{tag} {mode} differs from eager (iterations {loops['iters']} "
+                              f"against {ref[1]})")
+            runs[mode].append(dict(wall_s=wall, **loops))
+        spread = max(max(r["wall_s"] for r in rs) - min(r["wall_s"] for r in rs)
+                     for rs in runs.values())
+        for mode, rs in runs.items():
+            with solvers_eager() if mode == "eager" else contextlib.nullcontext():
+                lm.reset_loop_counts()
+                prof = profile_run(torch, fn)
+                loops = lm.loop_counts()
+            per = max(loops["iters"], 1)
+            entry[mode] = dict(
+                walls_s=[r["wall_s"] for r in rs], best_s=min(r["wall_s"] for r in rs),
+                iters=loops["iters"], chunks=loops["chunks"], masked=loops["masked"],
+                solves=loops["solves"], launch_calls=prof["launch_calls"],
+                launch_calls_per_iter=prof["launch_calls"] / per,
+                device_ms_per_iter=prof["busy_s"] * 1e3 / per,
+                busy=dict(busy_s=prof["busy_s"], wall_s=prof["wall_s"],
+                          share=prof["busy_s"] / prof["wall_s"]))
+            e = entry[mode]
+            print(f"{tag} {mode}: walls {', '.join(f'{w:.4f}' for w in e['walls_s'])} s, best "
+                  f"{e['best_s']:.4f} s; {e['iters']} LM iterations in {e['solves']} solves, "
+                  f"{e['chunks']} host reads, {e['masked']} masked; host launch calls "
+                  f"{e['launch_calls']} ({e['launch_calls_per_iter']:.1f} per iteration); card "
+                  f"{e['device_ms_per_iter']:.3f} ms per iteration, busy {prof['busy_s']:.4f} s "
+                  f"of {prof['wall_s']:.4f} s ({e['busy']['share']:.1%})")
+        entry["spread_s"] = spread
+        print(f"{tag} best graphs {entry['graphs']['best_s']:.4f} s, eager "
+              f"{entry['eager']['best_s']:.4f} s, spread {spread:.4f} s; results and n_iters "
+              "equal to eager bit for bit in every run")
+        result["problems"].append(entry)
+
+    # the rig's float64 joint solve, graphed, beside the rig phase's eager one
+    tag = f"[solver rig {RIG['n_cams']}x{RIG['n_frames']} float64] ({card})"
+    graphs.reset()
+    torch.cuda.empty_cache()
+    problem = rig_problem(seed=0, device="cuda", **RIG)
+    rig = []
+    for i in range(2):
+        graphs.reset_counts()
+        lm.reset_loop_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall = sync_time(torch, lambda: lm.ba_solve_multi(proj, *problem["args"]))
+        rig.append(dict(graphs.counts(), wall_s=wall, peak_mib=torch.cuda.max_memory_allocated()
+                        / 2**20, **lm.loop_counts()))
+        if not same_bits(result_bits(res), result_bits(rig_eager["result"])):
+            failed.append(f"{tag} run {i + 1} differs from the eager solve")
+    lm.reset_loop_counts()
+    prof = profile_run(torch, lambda: lm.ba_solve_multi(proj, *problem["args"]))
+    loops = lm.loop_counts()
+    rig_rec = dict(eager_s=rig_eager["seconds"], eager_iters=rig_eager["iters"], first_run=rig[0],
+                   second_run=rig[1], launch_calls_per_iter=prof["launch_calls"] / loops["iters"],
+                   device_ms_per_iter=prof["busy_s"] * 1e3 / loops["iters"],
+                   busy_share=prof["busy_s"] / prof["wall_s"], masked=loops["masked"])
+    print(f"{tag} eager (rig phase) {rig_eager['seconds']:.3f} s for {rig_eager['iters']} "
+          f"iterations; graphs first run {rig[0]['wall_s']:.3f} s ({rig[0]['captures']} captures "
+          f"in {rig[0]['capture_s']:.3f} s), second {rig[1]['wall_s']:.3f} s (captured "
+          f"{rig[1]['captures']}), {rig[1]['iters']} iterations, {rig[1]['masked']} masked; "
+          f"{rig_rec['launch_calls_per_iter']:.1f} host launch calls and "
+          f"{rig_rec['device_ms_per_iter']:.3f} ms of card time per iteration, busy "
+          f"{rig_rec['busy_share']:.1%}; pools {rig[1]['pool_mib']:.1f} MiB, peak "
+          f"{rig[1]['peak_mib']:.0f} MiB; equal to eager bit for bit")
+    if rig[1]["captures"] != 0:
+        failed.append(f"{tag} the second run captured {rig[1]['captures']} graphs")
+    result["rig_float64"] = rig_rec
+    del problem
+    graphs.reset()
+    torch.cuda.empty_cache()
+
+    # the chunk length: the 512 problem and the init attempt per K
+    real_k = lm.CHUNK_ITERS
+    sweep = []
+    try:
+        for k in SOLVER_KS:
+            lm.CHUNK_ITERS = k
+            for name, fn in problems[:2]:
+                measured(fn, "graphs")  # captures at this K
+                walls = [measured(fn, "graphs")[1] for _ in range(3)]
+                lm.reset_loop_counts()
+                prof = profile_run(torch, fn)
+                loops = lm.loop_counts()
+                rec = dict(k=k, problem=name, walls_s=walls, best_s=min(walls),
+                           masked=loops["masked"], chunks=loops["chunks"],
+                           device_ms_per_iter=prof["busy_s"] * 1e3 / max(loops["iters"], 1))
+                sweep.append(rec)
+                print(f"[solver chunk K={k}] ({card}) {name}: best {rec['best_s']:.4f} s of "
+                      f"{', '.join(f'{w:.4f}' for w in walls)}; {loops['chunks']} host reads, "
+                      f"{loops['masked']} masked iterations; card "
+                      f"{rec['device_ms_per_iter']:.3f} ms per iteration")
+    finally:
+        lm.CHUNK_ITERS = real_k
+    result["chunk_sweep"] = sweep
+    graphs.reset()
+    torch.cuda.empty_cache()
+
+    # the 512 main path, both compositions, solver graphs against eager
+    launches = 0
+    decide = {}
+    for comp, track in (("tracked", True), ("cold", False)):
+        walls = {"graphs": [], "eager": []}
+        ref = None
+        # one untimed run of each first: the graphed one captures this
+        # composition's shapes, so that every timed run is warm
+        for mode in ("graphs", "eager", "eager", "graphs", "graphs", "eager", "eager",
+                     "graphs"):
+            with solvers_eager() if mode == "eager" else contextlib.nullcontext():
+                with contextlib.redirect_stdout(sys.stderr):
+                    r = main_path(512, N_512, frames512, board, card,
+                                  f"[solver 512 {comp} main path, solver {mode}] ({card})",
+                                  track=track)
+            launches += r["launches"]
+            bits = result_bits((r["model"], r["rtvecs"])) + [np.array([r["median"]])]
+            ref = ref or bits
+            if not same_bits(bits, ref):
+                failed.append(f"[solver 512 {comp}] ({card}) solver {mode} changed the result")
+            walls[mode].append(r["t_total"])
+        warm_up = {m: v.pop(0) for m, v in walls.items()}
+        spread = max(max(v) - min(v) for v in walls.values())
+        gap = min(walls["graphs"]) - min(walls["eager"])
+        decide[f"512 {comp} main path"] = gap > spread
+        result[f"main_path_{comp}"] = dict(walls_s=walls, spread_s=spread,
+                                           graphs_minus_eager_s=gap, untimed_s=warm_up)
+        print(f"[solver 512 {comp} main path] ({card}) solver graphs "
+              f"{', '.join(f'{w:.3f}' for w in walls['graphs'])} s, eager "
+              f"{', '.join(f'{w:.3f}' for w in walls['eager'])} s (in turns, after one "
+              f"untimed run each: graphs {warm_up['graphs']:.3f} s with its captures, eager "
+              f"{warm_up['eager']:.3f} s); best graphs minus best eager {gap:+.3f} s, spread "
+              f"{spread:.3f} s; results equal bit for bit")
+    result["decide"] = decide
+    print(f"[solver] ({card}) phase took {time.perf_counter() - t_phase:.1f} s")
+    if failed:  # after the measurements, so that a failed run still shows them
+        raise RuntimeError("solver phase gates failed: " + "; ".join(failed))
+    return result, launches
+
+
+def solver_default(card, solver, fresh):
+    """Print and return the default rule's verdict for calibration: graphs
+    unless the 512 main path (tracked or cold) or the fresh CLI run with
+    the warm-up off is slower with solver graphs than with the solvers
+    eager (detection graphed in both) by more than the spread between that
+    comparison's runs.  The fresh runs with everything eager are printed
+    beside them, and judge nothing: they switch detection's graphs off too."""
+    from ccrs_tpu_torch import graphs
+
+    off = {m: [r["wall_s"] for r in fresh if r["prewarm"] == "0" and r["mode"] == m]
+           for m in ("graphs", "solvers_eager", "eager")}
+    spread = max(max(off[m]) - min(off[m]) for m in ("graphs", "solvers_eager"))
+    gap = min(off["graphs"]) - min(off["solvers_eager"])
+    decide = dict(solver["decide"], **{"fresh CLI, CCRS_PREWARM=0": gap > spread})
+    slower = [k for k, v in decide.items() if v]
+    rule = "eager" if slower else "graphs"
+    print(f"[solver default] ({card}) fresh CLI with CCRS_PREWARM=0: graphs "
+          f"{', '.join(f'{w:.3f}' for w in off['graphs'])} s, solvers eager "
+          f"{', '.join(f'{w:.3f}' for w in off['solvers_eager'])} s, best graphs minus best "
+          f"solvers eager {gap:+.3f} s, spread {spread:.3f} s (everything eager: "
+          f"{', '.join(f'{w:.3f}' for w in off['eager'])} s)")
+    print(f"[solver default] ({card}) the card runs calibration as graphs by default "
+          f"(graphs.active: {graphs.active('cuda')}); this run's rule (eager if graphs are "
+          f"slower than solvers eager by more than the spread on the 512 main path, tracked "
+          f"or cold, or the fresh CLI run) takes {rule}" + (f": graphs slower on {slower}" if slower else ""))
+    return dict(rule_takes=rule, graphs_slower_beyond_spread=slower,
+                fresh=dict(walls_s=off, spread_s=spread, graphs_minus_solvers_eager_s=gap))
+
+
 def main() -> int:
     import torch
 
@@ -2471,8 +2864,12 @@ def main() -> int:
         raise RuntimeError("the fresh-process CLI runs never launched the threshold kernel")
     from ccrs_tpu_torch.board import create_default_6x6_board
 
-    rig = run_rig_phase(card, run512, create_default_6x6_board())
+    rig, rig_eager = run_rig_phase(card, run512, create_default_6x6_board())
     launches_mesh = run_mesh_phase(card, frames512, run512, create_default_6x6_board(), joint)
+    solver, launches_solver = run_solver_phase(card, frames512, run512,
+                                               create_default_6x6_board(), rig_eager)
+    del rig_eager
+    solver["default"] = solver_default(card, solver, fresh)
     pipeline, launches_pipeline = run_pipeline_phase(card, frames512, cli_frames,
                                                      create_default_6x6_board())
     from ccrs_tpu_torch.detect import graphs
@@ -2501,6 +2898,7 @@ def main() -> int:
     print(json.dumps({"pipeline": pipeline, "card": card}))
     print(json.dumps({"sampling": sampling, "card": card}))
     print(json.dumps({"graphs": graphs_phase, "card": card}))
+    print(json.dumps({"solver": solver, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "threshold_front",
         "route": "cuda",
@@ -2508,7 +2906,7 @@ def main() -> int:
         "replaces": "ccrs_tpu/ops/threshold_pallas.py:35",
         "launches": (launches512 + launches1024 + launches_cli + launches_mesh
                      + launches_pipeline + launches_sampling + launches_graphs
-                     + launches_colour + launches_fresh + launches_bench),
+                     + launches_solver + launches_colour + launches_fresh + launches_bench),
         "launches_512": launches512,
         "launches_1024": launches1024,
         "launches_cli": launches_cli,
@@ -2519,6 +2917,8 @@ def main() -> int:
         "launches_sampling": launches_sampling,
         # the graphs phase's detections, with graphs and eager
         "launches_graphs": launches_graphs,
+        # the solver phase's 512 main paths, solver graphs and eager
+        "launches_solver": launches_solver,
         "launches_colour": launches_colour,
         # the subprocess CLI runs' own launches, and their warm-up threads'
         # (each child prints its library's count and, of that, what the

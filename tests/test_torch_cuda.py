@@ -13,7 +13,11 @@ a 64-frame chunk through the matmul branch without a synchronizing call;
 the captured CUDA graphs of the detect path (``detect/graphs.py``, the
 card's default) against eager, bit for bit, a capture that synchronizes
 raising, a second warm run capturing nothing, and sharded detection under
-graphs.  The card-vs-CPU comparisons run the CPU side in the card's sampling branch
+graphs; calibration's captured graphs (``solve/lm.py``'s device loop and
+``graphs.call``) against eager, bit for bit, a second solve capturing
+nothing, a chunk without a synchronizing call, two threads solving one
+shape at once, a solver capture beside device-wide synchronizes, and the
+calibration warm-up capturing nothing.  The card-vs-CPU comparisons run the CPU side in the card's sampling branch
 (``sample.matmul_branch``).  They skip without a CUDA device.
 
 This file imports neither jax nor ``ccrs_tpu``, so it also runs on a
@@ -839,3 +843,317 @@ def test_graphs_beside_other_threads(card):
     with graphs.eager():
         want = TagDetector("t36h11", device=card).detect_batch(None, board, dev_images=frames)
     _same_bits(got, want)
+
+
+# --------------------------------------------------------------------------
+# calibration's captured graphs (solve/lm.py's device loop, graphs.call)
+# --------------------------------------------------------------------------
+
+
+def _calib_problem(F, seed, device):
+    """A FrameBatch of ``F`` views of the board through a TUM-VI-like EUCM
+    camera (0.3 px noise), its true poses and the board."""
+    from ccrs_tpu_torch.calib.frames import FrameBatch
+    from ccrs_tpu_torch.types import RvecTvec
+
+    board = create_default_6x6_board()
+    gt = GenericModel("eucm", GT, 512, 512)
+    poses = smooth_sequence_poses(F, board, seed=seed)
+    rng = np.random.default_rng(seed)
+    p2d = np.zeros((F, board.n_corners, 2))
+    mask = np.zeros((F, board.n_corners), bool)
+    for f, pose in enumerate(poses):
+        p, valid = gt.project(RvecTvec(pose[:3], pose[3:]).transform(board.p3d))
+        inside = (p[:, 0] >= 0) & (p[:, 0] < 512) & (p[:, 1] >= 0) & (p[:, 1] < 512)
+        mask[f] = valid & inside
+        p2d[f] = np.where(mask[f][:, None], p + rng.normal(size=p.shape) * 0.3, 0.0)
+    return board, FrameBatch(np.arange(F), p2d, mask, 512, 512), poses
+
+
+def _ba_args(batch, poses, board, device, scale=1.01):
+    from ccrs_tpu_torch.calib.single import build_bounds
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=torch.float64, device=device)
+
+    lo, hi = build_bounds(GenericModel("eucm", GT, 512, 512), False)
+    F = batch.n_frames
+    return (t(np.array(GT) * scale), t(poses + 1e-3), t(board.p3d), t(batch.p2d),
+            t(batch.mask), t(lo), t(hi), t(np.ones(6)), t(np.ones(F)))
+
+
+def _solver_bits(out):
+    """Every number of a solver result, as numpy arrays."""
+    if out is None:
+        return [np.array([np.nan])]
+    if isinstance(out, GenericModel):
+        return [out.params]
+    if isinstance(out, tuple) and len(out) == 2 and isinstance(out[0], GenericModel):
+        model, rtvecs = out
+        return [model.params, np.array(sorted(rtvecs), float)] + [
+            np.concatenate([rtvecs[f].rvec, rtvecs[f].tvec]) for f in sorted(rtvecs)]
+    return [t.cpu().numpy() for t in out[:3]] + [np.array(out.n_iters)]
+
+
+def _same_solver_bits(got, want):
+    got, want = _solver_bits(got), _solver_bits(want)
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+        for a, b in zip(got, want))
+
+
+@pytest.fixture(scope="module")
+def solver_cases():
+    """name -> a solve on the card, each a path the calibration takes."""
+    from ccrs_tpu_torch.calib import calib_camera
+    from ccrs_tpu_torch.calib.convert import convert_model
+    from ccrs_tpu_torch.calib.initialize import find_best_two_frames, try_init_camera
+    from ccrs_tpu_torch.models import zeros_like_model
+    from ccrs_tpu_torch.models.projections import project_eucm
+    from ccrs_tpu_torch.solve import lm
+    from ccrs_tpu_torch.testdata import rig_problem
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graphs are captured on the card")
+    board, batch, poses = _calib_problem(64, 5, "cpu")
+    args = _ba_args(batch, poses, board, "cuda")
+    rig = rig_problem(3, 40, seed=1, device="cuda")["args"]
+    f0, f1 = find_best_two_frames(batch)
+    seed = GenericModel("eucm", np.array(GT) * [1.02, 0.99, 1, 1, 0.97, 1.02], 512, 512)
+    warm_valid = np.ones(batch.n_frames)
+    warm_valid[::3] = 0.0
+
+    def convert():
+        src = GenericModel("ucm", [190.5, 190.2, 255.2, 256.1, 0.63], 512, 512)
+        tgt = zeros_like_model("kb4", 512, 512)
+        convert_model(src, tgt, device="cuda")
+        return tgt
+
+    return {
+        "ba_solve": lambda: lm.ba_solve(project_eucm, *args),
+        "ba_solve_mixed": lambda: lm.ba_solve_mixed(project_eucm, *args),
+        "ba_solve_multi": lambda: lm.ba_solve_multi(project_eucm, *rig),
+        "lm_solve grid fit": convert,
+        "try_init_camera": lambda: try_init_camera(
+            board, batch, f0, f1, torch.Generator(device="cuda").manual_seed(3),
+            device="cuda"),
+        "calib_camera cold": lambda: calib_camera(board, batch, seed, False, 0, False,
+                                                  device="cuda"),
+        "calib_camera warm": lambda: calib_camera(
+            board, batch, seed, False, 0, False, warm_poses=poses + 1e-3,
+            warm_valid=warm_valid, device="cuda"),
+        "calib_camera skip_pose_init": lambda: calib_camera(
+            board, batch, seed, False, 0, False, warm_poses=poses + 1e-3,
+            warm_valid=np.ones(batch.n_frames), skip_pose_init=True, device="cuda"),
+        "calib_camera speculative": lambda: calib_camera(
+            board, batch, seed, False, 0, False, polish_iters=2, pose_init_f32=True,
+            device="cuda"),
+    }
+
+
+SOLVER_CASES = ("ba_solve", "ba_solve_mixed", "ba_solve_multi", "lm_solve grid fit",
+                "try_init_camera", "calib_camera cold", "calib_camera warm",
+                "calib_camera skip_pose_init", "calib_camera speculative")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SOLVER_CASES)
+def test_solver_graphs_equal_eager(card, solver_cases, name):
+    """Graphed (the card's default) against eager (``graphs.eager()``):
+    every number of the result and the LM iterations equal bit for bit;
+    the graphed run replays graphs, and a second identical one captures
+    nothing and gives the same bits."""
+    from ccrs_tpu_torch import graphs as core
+    from ccrs_tpu_torch.solve import lm
+
+    fn = solver_cases[name]
+    with graphs.eager():
+        lm.reset_loop_counts()
+        want = fn()
+        iters = lm.loop_counts()["iters"]
+    lm.reset_loop_counts()
+    got = fn()
+    assert lm.loop_counts()["iters"] == iters and iters > 0
+    core.reset_counts()
+    again = fn()
+    counts = core.counts()
+    assert counts["captures"] == 0 and counts["replays"] > 0, counts
+    assert _same_solver_bits(got, want) and _same_solver_bits(again, want)
+
+
+@pytest.mark.cuda
+def test_solver_chunk_makes_no_synchronizing_call(card, solver_cases):
+    """A captured chunk of ``ba_solve``'s loop replays under
+    ``set_sync_debug_mode("error")``, and so does the chunk's body run
+    eagerly on the graph's buffers; a blocking ``.item()`` after them
+    raises (the control)."""
+    from ccrs_tpu_torch import graphs as core
+    from ccrs_tpu_torch.solve import lm
+
+    solver_cases["ba_solve"]()
+    chunk = next(g for k, g in core._cache.items() if k[0] is lm._ba_chunk)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chunk.replay()
+        lm._ba_chunk(*chunk.args, *chunk.inputs)
+        with pytest.raises(RuntimeError, match="synchronizing"):
+            torch.ones(1, device=card).item()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_two_threads_solve_one_shape_at_once(card):
+    """Two threads solve problems of one shape at the same time, six times
+    each (a barrier starts every pair of solves together): each result
+    equals its eager solve bit for bit, and the overlap took a second
+    instance of the loop's graphs (``graphs.lease``)."""
+    import threading
+
+    from ccrs_tpu_torch import graphs as core
+    from ccrs_tpu_torch.models.projections import project_eucm
+    from ccrs_tpu_torch.solve import lm
+
+    core.reset()
+    problems = []
+    for seed in (6, 7):
+        board, batch, poses = _calib_problem(96, seed, "cpu")
+        problems.append(_ba_args(batch, poses, board, "cuda", scale=1.0 + seed / 500))
+    with graphs.eager():
+        wants = [lm.ba_solve(project_eucm, *a) for a in problems]
+    start, errors = threading.Barrier(2), []
+
+    def solve(i):
+        try:
+            for _ in range(6):
+                start.wait(timeout=120)
+                res = lm.ba_solve(project_eucm, *problems[i])
+                if not _same_solver_bits(res, wants[i]):
+                    errors.append(f"thread {i}: result differs from eager")
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=solve, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    assert not any(th.is_alive() for th in threads) and not errors, errors
+    assert any(k[0] is lm._ba_chunk and k[3] == 1 for k in core._cache)
+
+
+@pytest.mark.cuda
+def test_solver_capture_beside_device_synchronize(card):
+    """A first solve (its captures) on one thread while this thread
+    synchronizes the whole device in a loop through ``graphs.synchronize``
+    (``bench_torch.py``'s route): no error on either side, the synchronize
+    waits while a capture runs, and the solve equals eager."""
+    import threading
+
+    from ccrs_tpu_torch import graphs as core
+    from ccrs_tpu_torch.models.projections import project_eucm
+    from ccrs_tpu_torch.solve import lm
+
+    board, batch, poses = _calib_problem(96, 8, "cpu")
+    args = _ba_args(batch, poses, board, "cuda")
+    with graphs.eager():
+        want = lm.ba_solve(project_eucm, *args)
+    core.reset()
+    core.reset_counts()
+    out, errors = [], []
+
+    def solve():
+        try:
+            out.append(lm.ba_solve(project_eucm, *args))
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    th = threading.Thread(target=solve)
+    th.start()
+    syncs = 0
+    while th.is_alive():
+        core.synchronize(card)
+        syncs += 1
+    th.join()
+    assert not errors and syncs > 0 and core.counts()["captures"] > 0, errors
+    assert _same_solver_bits(out[0], want)
+
+
+@pytest.mark.cuda
+def test_calibration_warmup_captures_nothing_beside_device_syncs(card):
+    """``prewarm_calibration`` on a thread of its own while this thread
+    synchronizes the whole device in a loop (``torch.cuda.synchronize``,
+    as ``bench_torch.py``'s render does beside its warm-up): no error on
+    either side, and no capture (the warm-up's ``no_capture`` scope)."""
+    import threading
+
+    from ccrs_tpu_torch import graphs as core
+    from ccrs_tpu_torch.calib.prewarm import prewarm_calibration
+
+    core.reset()
+    core.reset_counts()
+    errors = []
+
+    def warm():
+        try:
+            prewarm_calibration(create_default_6x6_board(), 64, "eucm", speculative=True,
+                                device=card)
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    th = threading.Thread(target=warm)
+    th.start()
+    while th.is_alive():
+        torch.cuda.synchronize()
+    th.join()
+    assert not errors, errors
+    counts = core.counts()
+    assert counts["captures"] == 0 and counts["graphs"] == 0, counts
+
+
+@pytest.mark.cuda
+def test_solver_graphs_of_many_shapes_stay_bounded(card):
+    """``ba_solve`` on ``SHAPES_KEPT`` + 4 shapes in turn (one board corner
+    fewer each): the cache holds the start and chunk graphs of the
+    ``SHAPES_KEPT`` shapes solved last and no more; the shape solved last
+    replays, the one solved first is captured again; every result equals
+    its eager solve bit for bit; and the dropped graphs' pools return to
+    the card: after ``empty_cache`` its reserved memory grew by less than
+    two shapes' pools over what it held after the first ``SHAPES_KEPT``
+    shapes (four shapes' pools if nothing had returned)."""
+    from ccrs_tpu_torch import graphs as core
+    from ccrs_tpu_torch.models.projections import project_eucm
+    from ccrs_tpu_torch.solve import lm
+
+    n = core.SHAPES_KEPT
+    board, batch, poses = _calib_problem(32, 9, "cpu")
+    full = _ba_args(batch, poses, board, "cuda")
+    problems = []
+    for i in range(n + 4):
+        keep = board.n_corners - i
+        cut = (full[2][:keep], full[3][:, :keep], full[4][:, :keep])
+        problems.append(full[:2] + tuple(t.contiguous() for t in cut) + full[5:])
+    with graphs.eager():
+        wants = [lm.ba_solve(project_eucm, *a) for a in problems]
+
+    def ba_graphs():
+        return [g for k, g in core._cache.items() if k[0] in (lm._ba_chunk, lm._ba_start)]
+
+    core.reset()
+    torch.cuda.empty_cache()
+    reserved = []
+    for i, args in enumerate(problems):
+        assert _same_solver_bits(lm.ba_solve(project_eucm, *args), wants[i]), i
+        assert len(ba_graphs()) == 2 * min(i + 1, n)
+        if i + 1 in (n, n + 4):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved.append(torch.cuda.memory_reserved(card))
+    per_shape = sum(g.pool_bytes for g in ba_graphs()) / n
+    assert per_shape > 0 and reserved[1] - reserved[0] < 2 * per_shape, (reserved, per_shape)
+    for i, captures in ((n + 3, 0), (0, 2)):
+        core.reset_counts()
+        assert _same_solver_bits(lm.ba_solve(project_eucm, *problems[i]), wants[i])
+        assert core.counts()["captures"] == captures, i
+    core.reset()
