@@ -23,7 +23,9 @@ the graph of ``fn(*args, *bound, *inputs)``:
 - ``bound`` are tensors the graph reads or writes in place: they must be
   another graph's static buffers (the assist decode reads the primary
   decode's sharpened frames; the LM's start writes its loop's state), so
-  their identity enters the key;
+  their identity enters the key; a graph with ``bound`` may take no
+  ``inputs`` of its own (the frame-sharded LM's phases all work on one
+  holder graph's buffers per device);
 - ``slot`` picks one of several instances of the same shape, each with its
   own buffers: for callers that keep one instance's outputs alive while
   they replay the next, and for threads that solve at once (``lease``);
@@ -60,6 +62,15 @@ buffers), which is how the CPU tests drive the graphed code paths.
 ``eager()`` is a process-wide switch for tests and ``chip_smoke.py`` only;
 ``no_capture()`` is the warm-up thread's (``calib/prewarm.py``), so that
 its solves run eagerly while the detecting thread keeps its graphs.
+
+Several cards: a graph covers one device (PyTorch puts only the capturing
+device's allocator into capture mode), so work over a mesh is one graph
+per device and phase, and the copies between devices are issued by the
+host between replays (``solve/lm.py``'s per-shard route).  Each device
+has its own capture streams and pools (``_pools`` is keyed by device),
+one ``lease`` slot serves one solve's graphs on every card, ``keep``
+bounds the graphs per device, and ``synchronize`` takes a list of
+devices.
 
 Memory: a graph keeps its capture's memory (the function's peak) until
 ``reset``, or until ``keep`` drops it.  Graphs that are never in use at
@@ -162,9 +173,13 @@ def lease(name):
 
 def synchronize(device=None) -> None:
     """``torch.cuda.synchronize(device)`` once no capture runs: CUDA fails a
-    device-wide synchronize while any stream of the device captures."""
+    device-wide synchronize while any stream of the device captures.
+    ``device``: one device, None (the current one), or a list of devices
+    (a mesh's cards), each synchronized in turn."""
+    devices = device if isinstance(device, (list, tuple)) else [device]
     with _lock:
-        torch.cuda.synchronize(device)
+        for d in devices:
+            torch.cuda.synchronize(d)
 
 
 class Graph:
@@ -228,13 +243,16 @@ def get(fn, args: tuple, inputs, bound=(), slot=0, pool=None, tag=None, warm=Non
     the graph's own sets up what it needs (the LM's chunk warms up on one
     iteration); None: ``args``.
 
+    ``inputs`` may be empty when ``bound`` is not: the graph then lies on
+    the device of ``bound[0]``.
+
     On the CPU, inside ``eager()`` or inside this thread's
     ``no_capture()``, an eager stand-in with fresh buffers."""
     inputs = tuple(inputs)
-    x = inputs[0]
-    if x.device.type != "cuda" or _off():
+    dev = (inputs or bound)[0].device
+    if dev.type != "cuda" or _off():
         return Graph(fn, args, bound, tuple(torch.empty_like(t) for t in inputs))
-    key = _key(fn, args, x.device, _specs(inputs), bound, slot, tag)
+    key = _key(fn, args, dev, _specs(inputs), bound, slot, tag)
     g = _cache.get(key)
     if g is None:
         g = _capture(fn, args, inputs, bound, pool, key, warm)
@@ -290,24 +308,30 @@ def call(fn, args: tuple, inputs):
 
 def keep(group, slot, gs) -> None:
     """Note ``gs``, the graphs of one shape (an LM's start and chunk, one
-    ``call``), as the ones ``group``'s ``slot`` used last on their device,
-    and drop from the cache the graphs of the least recently used shape
-    beyond ``SHAPES_KEPT``.  The caller holds ``lease(group)``'s ``slot``,
-    so no other thread replays what is dropped.  A dropped graph's pool
-    returns to the card once nothing holds the graph: at the allocator's
-    next ``empty_cache``, or when an allocation runs short.  Eager
-    stand-ins are not held."""
+    ``call``, a frame-sharded LM's phases on one device), as the ones
+    ``group``'s ``slot`` used last on their device, and drop from the cache
+    the graphs of the least recently used shape beyond ``SHAPES_KEPT``,
+    but for those a newer shape holds too.  The caller holds
+    ``lease(group)``'s ``slot``, so no other thread replays what is
+    dropped.  A dropped graph's pool returns to the card once nothing
+    holds the graph: at the allocator's next ``empty_cache``, or when an
+    allocation runs short.  Eager stand-ins are not held."""
     gs = tuple(g for g in gs if g.graph is not None)
     if not gs:
         return
     with _lock:
-        recent = _recent.setdefault((group, slot, gs[0].inputs[0].device),
+        dev = (gs[0].inputs or gs[0].bound)[0].device
+        recent = _recent.setdefault((group, slot, dev),
                                     collections.OrderedDict())
         ids = tuple(id(g) for g in gs)
         recent[ids] = gs
         recent.move_to_end(ids)
         while len(recent) > SHAPES_KEPT:
+            # a graph that a newer shape uses too stays (the frame-sharded
+            # LM's first-device phases serve every shape of one size)
             old = recent.popitem(last=False)[1]
+            live = {id(g) for kept in recent.values() for g in kept}
+            old = [g for g in old if id(g) not in live]
             for k in [k for k, v in _cache.items() if any(v is g for g in old)]:
                 del _cache[k]
             _buffers.difference_update(
@@ -326,7 +350,7 @@ def _capture(fn, args, inputs, bound, pool, key=None, warm=None) -> Graph:
         if b is not None and b.data_ptr() not in _buffers:
             raise ValueError("a bound tensor must be a static buffer of another graph")
     t0 = time.perf_counter()
-    dev = inputs[0].device
+    dev = (inputs or bound)[0].device
     g = Graph(fn, args, bound, tuple(t.clone() for t in inputs))
     # what ``fn`` calls runs inside this capture, never as a graph of its own
     with torch.cuda.device(dev), no_capture():

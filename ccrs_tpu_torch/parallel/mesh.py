@@ -30,6 +30,16 @@ unsharded solvers are their one-device case.  Over a mesh:
 - the k x k (or M x M) solve runs once on the first device, and its step
   is copied back to the shards, whose pose updates stay local.
 
+The damping loop stays on the devices, as the JAX package's
+``shard_map``'d ``lax.while_loop`` does: over several cards each card
+replays captured CUDA graphs of its shard's phases of an iteration, the
+partials, costs and steps move between cards by copies the host queues
+between the replays, and the host reads the stop flag once per
+``solve.lm.CHUNK_ITERS`` iterations (``solve.lm._shard_loop``); a mesh
+whose shards all lie on one card replays one graph per chunk
+(``_device_loop``).  Results are the eager sharded route's bits
+(``graphs.eager()``).
+
 The solvers here take ``mesh.py``'s rules (``mesh_rules``), which differ
 from ``ba_solve``'s and ``ba_solve_multi``'s in two places: both stall on
 the rejection count alone, where those also require ``lam >= stall_lam``;

@@ -23,10 +23,15 @@ iterations runs a while-loop's iterations and counts only those.  On the
 card (``graphs.active``) each solve captures two CUDA graphs per shape
 (``graphs.py``): its start (clamp, first cost, fresh state) and a chunk of
 ``CHUNK_ITERS`` iterations that updates the state in place; the host
-replays the chunk and reads the stop flag once per replay.  Elsewhere (the
-CPU, ``graphs.eager()``, the warm-up thread's ``no_capture()``, a mesh of
-several cards) the same bodies run eagerly, one iteration per host read.
-Results and ``n_iters`` are the same bits either way.
+replays the chunk and reads the stop flag once per replay.  A solve whose
+frame shards lie on several cards cuts each iteration at its two
+reductions into per-shard and first-device phases, one captured graph per
+device and phase, with the copies between the cards queued between the
+replays: again one host read per ``CHUNK_ITERS`` iterations
+(``_shard_loop``).  Elsewhere (the CPU, ``graphs.eager()``, the warm-up
+thread's ``no_capture()``) the same bodies run eagerly, one iteration per
+host read.  Results and ``n_iters`` are the same bits on every route
+(``_route``).
 
 Cholesky factorizations of matrices that are not positive definite yield
 NaN (``cholesky_nan``), as ``jnp.linalg.cholesky`` does, and the LM
@@ -239,27 +244,72 @@ def _take(seq, *sizes):
     return out
 
 
-def _on_one_card(devices) -> bool:
-    """Whether every shard of ``devices`` lies on one device that takes
-    graphs (a mesh over several cards stays eager)."""
+#: True inside a ``shard_graphs()`` block
+_shard_forced = False
+
+
+@contextlib.contextmanager
+def shard_graphs(on: bool = True):
+    """Inside the block every mesh of more than one shard takes the
+    per-shard route (``_shard_loop``), also on one card and on the CPU
+    (where ``graphs.get`` hands out eager stand-ins); ``on=False`` restores
+    the route ``_route`` picks.  Process-wide, for tests and
+    ``chip_smoke.py``; restored on exit, so blocks nest."""
+    global _shard_forced
+    before = _shard_forced
+    _shard_forced = bool(on)
+    try:
+        yield
+    finally:
+        _shard_forced = before
+
+
+def _route(devices) -> str:
+    """How a solve over the shards ``devices`` runs its damping loop:
+    "fused" when every shard lies on one device that takes graphs (one
+    graph of ``CHUNK_ITERS`` iterations), "shards" when the shards lie on
+    several such cards, or inside ``shard_graphs()`` (per-shard graphs,
+    ``_shard_loop``), else "eager" (the same bodies, one host read per
+    iteration)."""
     devs = {torch.empty(0, device=d).device for d in devices}
-    return len(devs) == 1 and graphs.active(next(iter(devs)))
+    if len(devices) > 1 and (_shard_forced or (
+            len(devs) > 1 and all(graphs.active(d) for d in devs))):
+        return "shards"
+    if len(devs) == 1 and graphs.active(next(iter(devs))):
+        return "fused"
+    return "eager"
 
 
-#: solves, chunks replayed or run, iterations that counted and masked
-#: iterations since ``reset_loop_counts`` (all threads)
-_loop_counts = {"solves": 0, "chunks": 0, "iters": 0, "masked": 0}
+#: solves, chunks replayed or run (one host read each), iterations that
+#: counted and masked iterations since ``reset_loop_counts`` (all
+#: threads), and the solves per route
+_loop_counts = {"solves": 0, "chunks": 0, "iters": 0, "masked": 0,
+                "routes": {"fused": 0, "shards": 0, "eager": 0}}
 _loop_lock = threading.Lock()
 
 
 def loop_counts() -> dict:
-    """The damping loops' solves, chunks (host reads), iterations and the
-    masked iterations after a stop, since the last ``reset_loop_counts``."""
-    return dict(_loop_counts)
+    """The damping loops' solves, chunks (host reads: one per chunk on
+    every route), iterations and the masked iterations after a stop, and
+    the solves per route (``_route``), since the last
+    ``reset_loop_counts``."""
+    with _loop_lock:
+        return dict(_loop_counts, routes=dict(_loop_counts["routes"]))
 
 
 def reset_loop_counts() -> None:
-    _loop_counts.update(solves=0, chunks=0, iters=0, masked=0)
+    with _loop_lock:
+        _loop_counts.update(solves=0, chunks=0, iters=0, masked=0,
+                            routes={"fused": 0, "shards": 0, "eager": 0})
+
+
+def _count_loop(route, chunks, it, n) -> None:
+    with _loop_lock:
+        _loop_counts["solves"] += 1
+        _loop_counts["chunks"] += chunks
+        _loop_counts["iters"] += it
+        _loop_counts["masked"] += chunks * n - it
+        _loop_counts["routes"][route] += 1
 
 
 def _device_loop(name, start, chunk, static, problem, state, init, graphed: bool):
@@ -270,14 +320,15 @@ def _device_loop(name, start, chunk, static, problem, state, init, graphed: bool
     iterations in place and returns ``_status``.  ``state`` holds example
     values of the state (the capture's warm-up iterates from them).
 
-    ``graphed``: the chunk is a captured graph of ``CHUNK_ITERS``
-    iterations whose buffers hold ``problem`` and the state, and the start
-    a graph that writes that state; each replay of the chunk is one host
-    read.  Otherwise both run eagerly on stand-in buffers, one iteration
-    per read.  Threads that solve at once take other instances
-    (``graphs.lease``); the state is copied out before the lease ends.
-    The graphs are noted with ``graphs.keep`` under ``name``, which bounds
-    how many frame counts a long-lived process holds graphs for."""
+    ``graphed`` (the "fused" route): the chunk is a captured graph of
+    ``CHUNK_ITERS`` iterations whose buffers hold ``problem`` and the
+    state, and the start a graph that writes that state; each replay of
+    the chunk is one host read.  Otherwise ("eager") both run eagerly on
+    stand-in buffers, one iteration per read.  Threads that solve at once
+    take other instances (``graphs.lease``); the state is copied out
+    before the lease ends.  The graphs are noted with ``graphs.keep``
+    under ``name``, which bounds how many frame counts a long-lived
+    process holds graphs for.  ``_shard_loop`` is the third route."""
     n = CHUNK_ITERS if graphed else 1
     scope = contextlib.nullcontext() if graphed else graphs.no_capture()
     with graphs.lease(name) as slot, scope:
@@ -297,12 +348,119 @@ def _device_loop(name, start, chunk, static, problem, state, init, graphed: bool
                 break
         out = [t.clone() for t in steps.inputs[np_:]]
         graphs.keep(name, slot, (steps, first))
-    with _loop_lock:
-        _loop_counts["solves"] += 1
-        _loop_counts["chunks"] += chunks
-        _loop_counts["iters"] += it
-        _loop_counts["masked"] += chunks * n - it
+    _count_loop("fused" if graphed else "eager", chunks, it, n)
     return out, it
+
+
+class _Phases(NamedTuple):
+    """A frame-sharded LM's iteration cut at its reductions, each phase a
+    pure function of one device's buffers (``_shard_loop``): on every
+    shard ``system`` (commit the last accepted poses, Jacobians, pose
+    solves, the packed partial) and ``trial`` (back-substitution, trial
+    poses, local cost); on the first device ``solve`` (the partials summed
+    in shard order, the reduced solve, the trial iterate: the step the
+    shards read) and ``update`` (the costs summed, ``_lm_update``: the
+    next iterate, lam and accept the shards read, and ``_status``).  The
+    start: ``start`` on the first device (the clamped iterate and lam0),
+    ``cost0`` on every shard, ``scalars`` on the first device."""
+
+    start: Callable
+    cost0: Callable
+    scalars: Callable
+    system: Callable
+    solve: Callable
+    trial: Callable
+    update: Callable
+
+
+def _shard_loop(name, phases, static, shards, first, n_written, n_written0, n_params):
+    """The per-shard route of a frame-sharded LM (see ``_route``): run it
+    to its stop and return (the iterate's tensors, the poses per shard,
+    the final cost, n_iters).
+
+    Each device's phases share the buffers of one holder graph: shard s's
+    are ``shards[s]``, laid out as (the first ``n_written`` tensors the
+    host writes, the poses last of them; the iterate, lam and accept it
+    receives; the step it receives; its trial poses; its scratch), the
+    first device's are ``first``: (the first ``n_written0`` tensors the
+    host writes; the S packed partials and S costs it receives; the
+    iterate (``n_params`` tensors) and the six scalars; its scratch).
+    ``shards`` and ``first`` hold example values.  ``system`` and
+    ``solve`` hold the buffers (``Graph.inputs``); every other phase binds
+    them (``bound``).  On the card each phase is a captured graph of one
+    device (one pool per device, solve name and slot: a device replays
+    its phases one after another on its stream); the host queues
+    ``CHUNK_ITERS`` iterations of replays and of the copies between them
+    (``copy_`` into the receiving device's buffers, ordered on both
+    devices' streams, no host wait), then reads the stop flag once.
+    Elsewhere (the CPU, ``graphs.eager()``, ``no_capture()``) the same
+    phases run eagerly on stand-ins.  Results are the eager route's bits:
+    the phases run ``ba_step``'s and ``_multi_chunk``'s own helpers on the
+    same values, and the partials and costs are summed in shard order.
+
+    The poses of an accepted step are committed at the start of the next
+    ``system`` (and once after the loop): once the stop flag is set every
+    accept is False, so masked iterations change no bit of any state."""
+    S = len(shards)
+    with graphs.lease(name) as slot:
+        pool = ("lm shards", name, slot)
+
+        def get(fn, holder=(), bound=(), s=None):
+            return graphs.get(fn, static, holder, bound=bound, slot=slot, pool=pool, tag=s)
+
+        system = [get(phases.system, shards[s], s=s) for s in range(S)]
+        held = [g.inputs for g in system]
+        trial = [get(phases.trial, bound=held[s], s=s) for s in range(S)]
+        cost0 = [get(phases.cost0, bound=held[s], s=s) for s in range(S)]
+        solve = get(phases.solve, first)
+        held0 = solve.inputs
+        update, start, scalars = (get(f, bound=held0)
+                                  for f in (phases.update, phases.start, phases.scalars))
+        bcast, step = n_written, n_written + 1
+        parts, costs = held0[n_written0 : n_written0 + S], held0[n_written0 + S : n_written0 + 2 * S]
+        for h, values in zip(held, shards):
+            _write(h[:n_written], values[:n_written])
+        _write(held0[:n_written0], first[:n_written0])
+
+        def broadcast(x, slot_):
+            for h in held:
+                h[slot_].copy_(x, non_blocking=True)
+
+        broadcast(start.replay(), bcast)
+        for s in range(S):
+            costs[s].copy_(cost0[s].replay(), non_blocking=True)
+        scalars.replay()
+        chunks = 0
+        while True:
+            chunks += 1
+            for _ in range(CHUNK_ITERS):
+                for s in range(S):
+                    parts[s].copy_(system[s].replay(), non_blocking=True)
+                broadcast(solve.replay(), step)
+                for s in range(S):
+                    costs[s].copy_(trial[s].replay(), non_blocking=True)
+                iterate, status = update.replay()
+                broadcast(iterate, bcast)
+            done, it = status.tolist()
+            if done:
+                break
+        # commit the last accepted poses (a no-op after a masked iteration)
+        poses = [torch.where(h[bcast][-1] > 0, h[n_written + 2], h[n_written - 1])
+                 for h in held]
+        # the iterate and the cost copied out in one piece
+        state = held0[n_written0 + 2 * S : n_written0 + 2 * S + n_params + 2]
+        flat = torch.cat([t.reshape(-1) for t in (*state[:n_params], state[-1])])
+        params, i = [], 0
+        for t in state[:n_params]:
+            params.append(flat[i : i + t.numel()].view(t.shape))
+            i += t.numel()
+        by_device = {}
+        for g in (*system, *trial, *cost0, solve, update, start, scalars):
+            by_device.setdefault((g.inputs or g.bound)[0].device, []).append(g)
+        for gs in by_device.values():
+            graphs.keep(name + " shards", slot, gs)
+    _count_loop("shards", chunks, it, CHUNK_ITERS)
+    return params, poses, flat[-1], it
 
 
 # --------------------------------------------------------------------------
@@ -556,17 +714,67 @@ def ba_frame_fns(project_fn, p3d, one_focal: bool, jac_f32: bool = False):
     return residuals, jac_of(p3d)
 
 
+def _ba_shard_system(jac, theta, poses, p2d, w, valid, free, lam, huber_delta):
+    """One shard's share of a damped Schur step of the single-camera BA:
+    Huber-weighted normal blocks, one 6x6 solve per frame with k+1 stacked
+    right-hand sides and the partial Schur sums, all on the shard's device.
+    ``valid``: the shard's (F_s,) frame mask, None for the frames that
+    carry weight.  Returns (the packed (U | Schur correction | rhs)
+    partial (2k+1, k), what the back-substitution needs: (Ainv_Bt,
+    Ainv_g, valid))."""
+    (Jt, Jp), r = jac(theta, poses, p2d)  # (F,N,2,k), (F,N,2,6)
+    Jt = Jt * free
+    r2 = torch.sum(r * r, dim=-1)
+    wt = w * huber_block_weight(r2, huber_delta)  # (F, N)
+    valid = (torch.sum(wt, dim=1) > 0).to(wt.dtype) if valid is None else valid
+
+    U = torch.einsum("fnri,fnrj,fn->ij", Jt, Jt, wt)  # (k, k)
+    A = torch.einsum("fnri,fnrj,fn->fij", Jp, Jp, wt)  # (F, 6, 6)
+    B = torch.einsum("fnri,fnrj,fn->fij", Jt, Jp, wt)  # (F, k, 6)
+    g_t = torch.einsum("fnri,fnr,fn->i", Jt, r, wt)  # (k,)
+    g_p = torch.einsum("fnri,fnr,fn->fi", Jp, r, wt)  # (F, 6)
+
+    eye6 = torch.eye(6, dtype=wt.dtype, device=wt.device)
+    Ad = torch.where(valid[:, None, None] > 0, _damped(A, lam), eye6)
+    sol = cholesky_solve_batched_small(Ad, torch.cat([B.mT, g_p[..., None]], dim=2))
+    Ainv_Bt, Ainv_g = sol[..., :-1], sol[..., -1]  # (F, 6, k), (F, 6)
+    corr = torch.einsum("fij,fjk->ik", B, Ainv_Bt)
+    rhs = -(g_t - torch.einsum("fik,fi->k", Ainv_Bt, g_p))
+    return torch.cat([U, corr, rhs[None, :]], dim=0), (Ainv_Bt, Ainv_g, valid)
+
+
+def _ba_reduced_step(tot, free, lam, mesh_rules: bool):
+    """The k x k solve of the summed packed system ``tot``: (the step the
+    poses back-substitute, the step with non-finite entries zeroed)."""
+    k = tot.shape[1]
+    U, corr, rhs = tot[:k], tot[k : 2 * k], tot[2 * k]
+    # unit diagonal for fixed variables, Marquardt scaling, then the
+    # correction
+    S = _damped(U + torch.diag(1.0 - free), lam) - corr
+    dth = cholesky_solve_batched_small(S, rhs)
+    if mesh_rules:
+        dth = _finite_or_zero(dth)
+    return dth, _finite_or_zero(dth)
+
+
+def _ba_backsub(local, dth, poses):
+    """One shard's poses after the step ``dth`` (``_ba_shard_system``'s
+    ``local``); frames that are not valid do not move."""
+    Ainv_Bt, Ainv_g, valid = local
+    dpo = -(Ainv_g + torch.einsum("fik,k->fi", Ainv_Bt, dth))
+    return poses + _finite_or_zero(dpo) * valid[:, None]
+
+
 def ba_step(jacs, theta, poses_s, p2d_s, w_s, valid_s, free, lam, devices,
             huber_delta, mesh_rules: bool = False):
     """One damped Schur step of the single-camera BA over frame shards.
 
     Per shard (shard s on ``devices[s]``, Jacobians ``jacs[s]`` from
-    ``ba_frame_fns``): Huber-weighted normal blocks, one 6x6 solve per
-    frame with k+1 stacked right-hand sides, and the partial Schur sums.
-    Across shards: one reduction of the packed (U | Schur correction |
-    rhs) system on the first device, where the k x k solve runs once.
-    ``valid_s``: per-shard (F_s,) frame masks; None takes the frames that
-    carry weight.  Invalid frames get an identity block and no update.
+    ``ba_frame_fns``): ``_ba_shard_system``.  Across shards: one reduction
+    of the packed (U | Schur correction | rhs) system on the first device,
+    where the k x k solve runs once.  ``valid_s``: per-shard (F_s,) frame
+    masks; None takes the frames that carry weight.  Invalid frames get an
+    identity block and no update.
 
     ``mesh_rules``: a non-finite intrinsics step is zeroed before the
     poses' back-substitution, as in the JAX package's frame-sharded
@@ -576,46 +784,18 @@ def ba_step(jacs, theta, poses_s, p2d_s, w_s, valid_s, free, lam, devices,
     Returns (dth (k,) with non-finite entries zeroed, the poses after the
     step per shard).
     """
-    dev0 = devices[0]
-    k = theta.shape[0]
     th, fr, lm = _PerDevice(theta), _PerDevice(free), _PerDevice(lam)
     packed, local = [], []
     for s, d in enumerate(devices):
-        (Jt, Jp), r = jacs[s](th.on(d), poses_s[s], p2d_s[s])  # (F,N,2,k), (F,N,2,6)
-        Jt = Jt * fr.on(d)
-        r2 = torch.sum(r * r, dim=-1)
-        wt = w_s[s] * huber_block_weight(r2, huber_delta)  # (F, N)
-        valid = (torch.sum(wt, dim=1) > 0).to(wt.dtype) if valid_s is None else valid_s[s]
-
-        U = torch.einsum("fnri,fnrj,fn->ij", Jt, Jt, wt)  # (k, k)
-        A = torch.einsum("fnri,fnrj,fn->fij", Jp, Jp, wt)  # (F, 6, 6)
-        B = torch.einsum("fnri,fnrj,fn->fij", Jt, Jp, wt)  # (F, k, 6)
-        g_t = torch.einsum("fnri,fnr,fn->i", Jt, r, wt)  # (k,)
-        g_p = torch.einsum("fnri,fnr,fn->fi", Jp, r, wt)  # (F, 6)
-
-        eye6 = torch.eye(6, dtype=wt.dtype, device=d)
-        Ad = torch.where(valid[:, None, None] > 0, _damped(A, lm.on(d)), eye6)
-        sol = cholesky_solve_batched_small(Ad, torch.cat([B.mT, g_p[..., None]], dim=2))
-        Ainv_Bt, Ainv_g = sol[..., :-1], sol[..., -1]  # (F, 6, k), (F, 6)
-        corr = torch.einsum("fij,fjk->ik", B, Ainv_Bt)
-        rhs = -(g_t - torch.einsum("fik,fi->k", Ainv_Bt, g_p))
-        packed.append(torch.cat([U, corr, rhs[None, :]], dim=0))
-        local.append((Ainv_Bt, Ainv_g, valid))
-    tot = _reduce(packed, dev0)
-    U, corr, rhs = tot[:k], tot[k : 2 * k], tot[2 * k]
-    # unit diagonal for fixed variables, Marquardt scaling, then the
-    # correction
-    S = _damped(U + torch.diag(1.0 - free), lam) - corr
-    dth = cholesky_solve_batched_small(S, rhs)
-    if mesh_rules:
-        dth = _finite_or_zero(dth)
+        p, loc = _ba_shard_system(jacs[s], th.on(d), poses_s[s], p2d_s[s], w_s[s],
+                                  None if valid_s is None else valid_s[s], fr.on(d),
+                                  lm.on(d), huber_delta)
+        packed.append(p)
+        local.append(loc)
+    dth, dth_zeroed = _ba_reduced_step(_reduce(packed, devices[0]), free, lam, mesh_rules)
     dr = _PerDevice(dth)
-    po_new = []
-    for s, d in enumerate(devices):
-        Ainv_Bt, Ainv_g, valid = local[s]
-        dpo = -(Ainv_g + torch.einsum("fik,k->fi", Ainv_Bt, dr.on(d)))
-        po_new.append(poses_s[s] + _finite_or_zero(dpo) * valid[:, None])
-    return _finite_or_zero(dth), po_new
+    po_new = [_ba_backsub(local[s], dr.on(d), poses_s[s]) for s, d in enumerate(devices)]
+    return dth_zeroed, po_new
 
 
 def ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid,
@@ -626,8 +806,9 @@ def ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid,
     on their shard, each iteration reduces one packed system (``ba_step``)
     and the robust cost on the first device.  F must be a multiple of
     ``len(devices)``; results on the first device.  The damping loop runs
-    on the device (``_device_loop``), as graphs when every shard lies on
-    one card.
+    on the devices by the route ``_route`` picks: one fused graph per
+    chunk when every shard lies on one card (``_device_loop``), per-shard
+    graphs over several cards (``_shard_loop``), else eagerly.
 
     ``mesh_rules``: the JAX package's frame-sharded rules (``ba_step``'s
     step order, and a stall on the rejection count alone, whatever lam).
@@ -640,12 +821,18 @@ def ba_lm(project_fn, theta0, poses0, p3d, p2d, w, lo, hi, free, frame_valid,
     problem = (lo.to(dev0), hi.to(dev0), free.to(dev0), *[p3d.to(d) for d in devices],
                *_split(p2d, devices), *w_s, *fv_s)
     init = (theta0.to(dev0), *_split(poses0, devices))
-    static = (project_fn, one_focal, opts, tuple(devices), mesh_rules, jac_f32)
-    example = (*init, *_lm_scalars(opts, torch.zeros((), dtype=theta0.dtype, device=dev0)))
-    state, n_iters = _device_loop("ba", _ba_start, _ba_chunk, static, problem, example,
-                                  init, graphed=_on_one_card(devices))
-    theta, poses_s, (_, cost, *_) = _take(state, 1, S)
-    return BAResult(theta[0], _gather(poses_s, dev0), cost, n_iters)
+    route = _route(devices)
+    if route == "shards":
+        (theta,), poses_s, cost, n_iters = _shard_loop(
+            "ba", _BA_PHASES, (project_fn, one_focal, opts, mesh_rules, jac_f32, S),
+            *_ba_holders(devices, problem, init), n_written=6, n_written0=4, n_params=1)
+    else:
+        static = (project_fn, one_focal, opts, tuple(devices), mesh_rules, jac_f32)
+        example = (*init, *_lm_scalars(opts, torch.zeros((), dtype=theta0.dtype, device=dev0)))
+        state, n_iters = _device_loop("ba", _ba_start, _ba_chunk, static, problem, example,
+                                      init, graphed=route == "fused")
+        (theta,), poses_s, (_, cost, *_) = _take(state, 1, S)
+    return BAResult(theta, _gather(poses_s, dev0), cost, n_iters)
 
 
 def _ba_parts(static, tensors):
@@ -658,14 +845,18 @@ def _ba_parts(static, tensors):
     return lo, hi, free, p2d_s, w_s, fv_s, rest, fns
 
 
+def _ba_local_cost(residuals, theta, poses, p2d, w, huber_delta):
+    """One shard's robust cost."""
+    r = residuals(theta, poses, p2d)
+    r2 = torch.sum(r * r, dim=-1)
+    return torch.sum(w * huber_cost(r2, huber_delta))
+
+
 def _ba_cost(static, fns, theta, poses_s, p2d_s, w_s):
     opts, devices = static[2], static[3]
     th = _PerDevice(theta)
-    local = []
-    for s, d in enumerate(devices):
-        r = fns[s][0](th.on(d), poses_s[s], p2d_s[s])
-        r2 = torch.sum(r * r, dim=-1)
-        local.append(torch.sum(w_s[s] * huber_cost(r2, opts.huber_delta)))
+    local = [_ba_local_cost(fns[s][0], th.on(d), poses_s[s], p2d_s[s], w_s[s],
+                            opts.huber_delta) for s, d in enumerate(devices)]
     return _reduce(local, devices[0])
 
 
@@ -704,6 +895,144 @@ def _ba_chunk(*args):
                    for d, pn, po in zip(devices, po_new, poses_s)]
     _write(state, (theta, *poses_s, *st))
     return _status(st)
+
+
+def _iterate_message(params, lam, accept):
+    """What the shards receive from the first device: the iterate's
+    tensors flattened, lam and accept (as 0 / 1), in one tensor."""
+    return torch.cat([*(p.reshape(-1) for p in params), lam.reshape(1),
+                      accept.to(lam.dtype).reshape(1)])
+
+
+def _lam0(opts, like):
+    return torch.full((), opts.lam0, dtype=like.dtype, device=like.device)
+
+
+def _blank(like, device, *shapes):
+    """Unwritten buffers of ``like``'s dtype on ``device``: the examples of
+    what a phase receives or writes before any phase reads it (a
+    capture's warm-up runs on whatever they hold; no kernel fills them)."""
+    return [torch.empty(shape, dtype=like.dtype, device=device) for shape in shapes]
+
+
+def _blank_scalars(like):
+    """Unwritten buffers shaped as ``_lm_scalars``'."""
+    dt, dev = like.dtype, like.device
+    return [torch.empty((), dtype=t, device=dev)
+            for t in (dt, dt, torch.int64, torch.bool, torch.int64, torch.bool)]
+
+
+def _ba_holders(devices, problem, init):
+    """Example values of ``ba_lm``'s per-shard buffers for ``_shard_loop``:
+    per shard (free, p3d, p2d, w, fv, poses; the iterate message (theta,
+    lam, accept); the step (dth, trial theta); trial poses, Ainv_Bt,
+    Ainv_g), and on the first device (lo, hi, free, theta0; S partials, S
+    costs; theta, the six scalars; the trial theta)."""
+    S = len(devices)
+    (lo, hi, free), p3d_s, p2d_s, w_s, fv_s, _ = _take(problem, 3, S, S, S, S)
+    theta0, poses0_s = init[0], init[1:]
+    k = theta0.shape[0]
+    shards = [(free.to(d), p3d_s[s], p2d_s[s], w_s[s], fv_s[s], poses0_s[s],
+               *_blank(theta0, d, (k + 2,), (2 * k,), (F, 6), (F, 6, k), (F, 6)))
+              for s, d in enumerate(devices) for F in [poses0_s[s].shape[0]]]
+    first = (lo, hi, free, theta0, *_blank(theta0, theta0.device, *[(2 * k + 1, k)] * S,
+                                          *[()] * S, (k,)),
+             *_blank_scalars(theta0), *_blank(theta0, theta0.device, (k,)))
+    return shards, first
+
+
+def _ba_shard(static, held):
+    """A shard's buffers: (opts, free, p3d, p2d, w, fv, poses, message,
+    step, trial poses, Ainv_Bt, Ainv_g) and its residual functions'
+    factory."""
+    project_fn, one_focal, opts, _, jac_f32, _ = static
+    p3d = held[1]
+    return (opts, *held,
+            lambda f32=jac_f32: ba_frame_fns(project_fn, p3d, one_focal, f32))
+
+
+def _ba_system(*args):
+    """Phase (a) of ``ba_lm`` on one shard: commit the accepted poses, then
+    the packed partial of the step at the received theta and lam."""
+    opts, free, _, p2d, w, fv, poses, msg, _, po_new, ainv_bt, ainv_g, fns = _ba_shard(
+        args[:6], args[6:])
+    k = free.shape[0]
+    poses.copy_(torch.where(msg[k + 1] > 0, po_new, poses))
+    packed, (a, g, _) = _ba_shard_system(fns()[1], msg[:k].clone(), poses, p2d, w, fv, free,
+                                         msg[k].clone(), opts.huber_delta)
+    _write((ainv_bt, ainv_g), (a, g))
+    return packed
+
+
+def _ba_trial(*args):
+    """Phase (c) of ``ba_lm`` on one shard: back-substitute the received
+    step into trial poses; their local cost at the trial theta."""
+    opts, free, _, p2d, w, fv, poses, _, step, po_new, ainv_bt, ainv_g, fns = _ba_shard(
+        args[:6], args[6:])
+    k = free.shape[0]
+    trial = _ba_backsub((ainv_bt, ainv_g, fv), step[:k].clone(), poses)
+    po_new.copy_(trial)
+    return _ba_local_cost(fns(False)[0], step[k:].clone(), trial, p2d, w, opts.huber_delta)
+
+
+def _ba_cost0(*args):
+    """The start of ``ba_lm`` on one shard: the local cost at the
+    received theta and the first poses."""
+    opts, free, _, p2d, w, _, poses, msg, *_, fns = _ba_shard(args[:6], args[6:])
+    return _ba_local_cost(fns(False)[0], msg[: free.shape[0]].clone(), poses, p2d, w,
+                          opts.huber_delta)
+
+
+def _ba_first(static, held):
+    """The first device's buffers: (opts, stall lam, lo, hi, free, theta0,
+    partials, costs, theta, scalars, trial theta)."""
+    opts, mesh_rules, S = static[2], static[3], static[5]
+    (lo, hi, free, theta0), parts, costs, (theta,), st, (th_new,) = _take(held, 4, S, S, 1, 6)
+    return (opts, 0.0 if mesh_rules else opts.stall_lam, lo, hi, free, theta0, parts, costs,
+            theta, st, th_new)
+
+
+def _ba_start_first(*args):
+    """The start of ``ba_lm`` on the first device: the clamped theta0, and
+    the iterate message (theta, lam0, no accept)."""
+    opts, _, lo, hi, _, theta0, _, _, theta, _, _ = _ba_first(args[:6], args[6:])
+    theta.copy_(torch.clamp(theta0, lo, hi))
+    return _iterate_message((theta,), _lam0(opts, theta), theta.new_zeros((), dtype=torch.bool))
+
+
+def _ba_scalars(*args):
+    """The start of ``ba_lm`` on the first device: fresh scalars beside the
+    summed costs."""
+    opts, *_, costs, _, st, _ = _ba_first(args[:6], args[6:])
+    _write(st, _lm_scalars(opts, _reduce(costs, costs[0].device)))
+
+
+def _ba_solve_first(*args):
+    """Phase (b) of ``ba_lm`` on the first device: the partials summed in
+    shard order, the k x k solve, the trial theta; returns the step the
+    shards receive (the back-substituted step, the trial theta)."""
+    static = args[:6]
+    _, _, lo, hi, free, _, parts, _, theta, st, th_new = _ba_first(static, args[6:])
+    dth, dth_zeroed = _ba_reduced_step(_reduce(parts, theta.device), free, st[0], static[3])
+    trial = torch.clamp(theta + dth_zeroed * free, lo, hi)
+    th_new.copy_(trial)
+    return torch.cat([dth, trial])
+
+
+def _ba_update(*args):
+    """Phase (d) of ``ba_lm`` on the first device: the costs summed in
+    shard order, the LM's verdict; returns (the iterate message,
+    ``_status``)."""
+    opts, stall_lam, *_, costs, theta, st, th_new = _ba_first(args[:6], args[6:])
+    accept, st_n = _lm_update(opts, stall_lam, tuple(st), _reduce(costs, theta.device))
+    theta_n = torch.where(accept, th_new, theta)
+    _write((theta, *st), (theta_n, *st_n))
+    return _iterate_message((theta_n,), st_n[0], accept), _status(st_n)
+
+
+_BA_PHASES = _Phases(start=_ba_start_first, cost0=_ba_cost0, scalars=_ba_scalars,
+                     system=_ba_system, solve=_ba_solve_first, trial=_ba_trial,
+                     update=_ba_update)
 
 
 def _as(dtype, *tensors):
@@ -902,8 +1231,8 @@ def multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
     (2M+2, M) and the robust cost on the first device, where the M x M
     solve runs once.  F must be a multiple of ``len(devices)`` (padding
     frames carry frame_valid = 0); results on the first device.  The
-    damping loop runs on the device (``_device_loop``), as graphs when
-    every shard lies on one card.
+    damping loop runs on the devices by the route ``_route`` picks (see
+    ``ba_lm``).
 
     ``mesh_rules``: stall on the rejection count alone, whatever lam (the
     JAX package's frame-sharded rule).  ``jac_f32``: float32 Jacobians
@@ -915,22 +1244,36 @@ def multi_ba_lm(project_fn, theta0, ext0, poses0, p3d, p2d, w, lo, hi, free,
     S = len(devices)
     lo, hi, free = lo.to(dev0), hi.to(dev0), free.to(dev0)
     w = w * cam_frame_valid[:, :, None] * frame_valid[None, :, None]
-    # e_0 is pinned to identity; its columns get a unit diagonal below
-    ext_free = torch.cat(
-        [torch.zeros((1, 6), dtype=dtype, device=dev0),
-         torch.ones((C - 1, 6), dtype=dtype, device=dev0)], dim=0,
-    )
-    unit_fixed = torch.diag(1.0 - torch.cat([free.reshape(-1), ext_free.reshape(-1)]))
-    problem = (lo, hi, free, ext_free, unit_fixed, *[p3d.to(d) for d in devices],
-               *_split(p2d, devices, dim=1), *_split(w, devices, dim=1),
-               *_split(frame_valid, devices))
+    shards = (*[p3d.to(d) for d in devices], *_split(p2d, devices, dim=1),
+              *_split(w, devices, dim=1), *_split(frame_valid, devices))
     init = (theta0.to(dev0), ext0.to(dev0), *_split(poses0, devices))
-    static = (project_fn, one_focal, opts, tuple(devices), mesh_rules, jac_f32)
-    example = (*init, *_lm_scalars(opts, torch.zeros((), dtype=dtype, device=dev0)))
-    state, n_iters = _device_loop("multi", _multi_start, _multi_chunk, static, problem,
-                                  example, init, graphed=_on_one_card(devices))
-    (theta, ext), poses_s, (_, cost, *_) = _take(state, 2, S)
+    route = _route(devices)
+    if route == "shards":
+        (theta, ext), poses_s, cost, n_iters = _shard_loop(
+            "multi", _MULTI_PHASES, (project_fn, one_focal, opts, mesh_rules, jac_f32, S),
+            *_multi_holders(devices, (lo, hi, free, *shards), init), n_written=6,
+            n_written0=5, n_params=2)
+    else:
+        ext_free = _ext_free(C, free)
+        problem = (lo, hi, free, ext_free, _unit_fixed(free, ext_free), *shards)
+        static = (project_fn, one_focal, opts, tuple(devices), mesh_rules, jac_f32)
+        example = (*init, *_lm_scalars(opts, torch.zeros((), dtype=dtype, device=dev0)))
+        state, n_iters = _device_loop("multi", _multi_start, _multi_chunk, static, problem,
+                                      example, init, graphed=route == "fused")
+        (theta, ext), poses_s, (_, cost, *_) = _take(state, 2, S)
     return MultiBAResult(theta, ext, _gather(poses_s, dev0), cost, n_iters)
+
+
+def _ext_free(C, free):
+    """The extrinsics' free mask: e_0 is pinned to identity (its columns
+    get a unit diagonal), the others are free."""
+    return torch.cat([torch.zeros((1, 6), dtype=free.dtype, device=free.device),
+                      torch.ones((C - 1, 6), dtype=free.dtype, device=free.device)], dim=0)
+
+
+def _unit_fixed(free, ext_free):
+    """The reduced system's unit diagonal for fixed variables."""
+    return torch.diag(1.0 - torch.cat([free.reshape(-1), ext_free.reshape(-1)]))
 
 
 def _multi_parts(static, tensors):
@@ -945,17 +1288,21 @@ def _multi_parts(static, tensors):
     return (*fixed, p2d_s, w_s, fv_s, rest, fns)
 
 
+def _multi_local_cost(fns, theta, ext, poses, p2d, w, huber_delta):
+    """One shard's robust cost over every camera."""
+    total = torch.zeros((), dtype=theta.dtype, device=theta.device)
+    for c in range(theta.shape[0]):
+        r = fns[c][0](theta[c], ext[c], poses, p2d[c])
+        r2 = torch.sum(r * r, dim=-1)
+        total = total + torch.sum(w[c] * huber_cost(r2, huber_delta))
+    return total
+
+
 def _multi_cost(static, fns, theta, ext, poses_s, p2d_s, w_s):
     opts, devices = static[2], static[3]
     th, ex = _PerDevice(theta), _PerDevice(ext)
-    local = []
-    for s, d in enumerate(devices):
-        total = torch.zeros((), dtype=theta.dtype, device=d)
-        for c in range(theta.shape[0]):
-            r = fns[s][c][0](th.on(d)[c], ex.on(d)[c], poses_s[s], p2d_s[s][c])
-            r2 = torch.sum(r * r, dim=-1)
-            total = total + torch.sum(w_s[s][c] * huber_cost(r2, opts.huber_delta))
-        local.append(total)
+    local = [_multi_local_cost(fns[s], th.on(d), ex.on(d), poses_s[s], p2d_s[s], w_s[s],
+                               opts.huber_delta) for s, d in enumerate(devices)]
     return _reduce(local, devices[0])
 
 
@@ -971,6 +1318,58 @@ def _multi_start(*args):
     _write(state, (theta, ext0, *poses0, *_lm_scalars(static[2], cost)))
 
 
+def _multi_shard_system(fns, theta, ext, poses, p2d, w, fv, free, ext_free, lam,
+                        huber_delta):
+    """One shard's share of a damped joint Schur step: its normal blocks
+    (``_multi_shard_blocks``), the board poses' 6x6 solves and the partial
+    Schur sums.  Returns (the packed (U | Schur correction | rhs |
+    gradient) partial (2M+2, M), (Ainv_Bt, Ainv_g) for the
+    back-substitution)."""
+    U, g_x, A, B, g_p = _multi_shard_blocks(fns, theta, ext, poses, p2d, w, free, ext_free,
+                                            huber_delta)
+    eye6 = torch.eye(6, dtype=theta.dtype, device=theta.device)
+    Ad = torch.where(fv[:, None, None] > 0, _damped(A, lam), eye6)
+    sol = cholesky_solve_batched_small(Ad, torch.cat([B.mT, g_p[..., None]], dim=2))
+    Ainv_Bt, Ainv_g = sol[..., :-1], sol[..., -1]  # (F, 6, M), (F, 6)
+    corr = torch.einsum("fij,fjk->ik", B, Ainv_Bt)
+    rhs = -(g_x - torch.einsum("fik,fi->k", Ainv_Bt, g_p))
+    return torch.cat([U, corr, rhs[None, :], g_x[None, :]], dim=0), (Ainv_Bt, Ainv_g)
+
+
+def _multi_reduced_step(tot, unit_fixed, lam):
+    """The M x M solve of the summed packed system ``tot``: (the raw step,
+    the summed gradient)."""
+    M = tot.shape[1]
+    U, corr, rhs, g_x = tot[:M], tot[M : 2 * M], tot[2 * M], tot[2 * M + 1]
+    S_ = _damped(U + unit_fixed, lam) - corr
+    # Jacobi-scale the reduced solve: parameter magnitudes span ~1e5
+    # (focal vs distortion vs extrinsic rotation); D S D has a unit
+    # diagonal and solves identically
+    dg = torch.sqrt(torch.clamp(torch.diagonal(S_), min=1e-12))
+    Sn = S_ / dg[:, None] / dg[None, :]
+    return cholesky_solve_batched_small(Sn, rhs / dg) / dg, g_x
+
+
+def _multi_backsub(local, dx, poses, fv):
+    """One shard's board poses after the raw step ``dx``."""
+    Ainv_Bt, Ainv_g = local
+    dpo = -(Ainv_g + torch.einsum("fim,m->fi", Ainv_Bt, dx))
+    return poses + _finite_or_zero(dpo) * fv[:, None]
+
+
+def _multi_trial(theta, ext, dx, free, ext_free, lo, hi):
+    """The trial intrinsics and extrinsics of the zeroed step ``dx``."""
+    C, k = theta.shape
+    th_new = torch.clamp(theta + dx[: C * k].reshape(C, k) * free, lo, hi)
+    return th_new, ext + dx[C * k :].reshape(C, 6) * ext_free
+
+
+def _gradient_small(g_x, cost):
+    """The joint BA's second stop: a vanished gradient.  Large joint
+    problems keep finding micro-improvements at the noise floor."""
+    return torch.max(torch.abs(g_x)) <= 1e-9 * torch.clamp(cost, min=1.0)
+
+
 def _multi_chunk(*args):
     """``n`` iterations of ``multi_ba_lm``'s damping loop on the state
     buffers, in place; returns ``_status``."""
@@ -981,50 +1380,27 @@ def _multi_chunk(*args):
         static, tensors)
     (theta, ext), poses_s, st = _take(state, 2, S)
     st = tuple(st)
-    C, k = theta.shape
-    M = C * k + C * 6
     free_r, ext_free_r = _PerDevice(free), _PerDevice(ext_free)
-    eye6 = [torch.eye(6, dtype=theta.dtype, device=d) for d in devices]
     stall_lam = 0.0 if mesh_rules else opts.stall_lam
     for _ in range(n):
         th, ex, lm = _PerDevice(theta), _PerDevice(ext), _PerDevice(st[0])
         packed, local = [], []
         for s, d in enumerate(devices):
-            U, g_x, A, B, g_p = _multi_shard_blocks(
-                fns[s], th.on(d), ex.on(d), poses_s[s], p2d_s[s], w_s[s],
-                free_r.on(d), ext_free_r.on(d), opts.huber_delta,
-            )
-            Ad = torch.where(fv_s[s][:, None, None] > 0, _damped(A, lm.on(d)), eye6[s])
-            sol = cholesky_solve_batched_small(Ad, torch.cat([B.mT, g_p[..., None]], dim=2))
-            Ainv_Bt, Ainv_g = sol[..., :-1], sol[..., -1]  # (F, 6, M), (F, 6)
-            corr = torch.einsum("fij,fjk->ik", B, Ainv_Bt)
-            rhs = -(g_x - torch.einsum("fik,fi->k", Ainv_Bt, g_p))
-            packed.append(torch.cat([U, corr, rhs[None, :], g_x[None, :]], dim=0))
-            local.append((Ainv_Bt, Ainv_g))
-        tot = _reduce(packed, devices[0])
-        U, corr, rhs, g_x = tot[:M], tot[M : 2 * M], tot[2 * M], tot[2 * M + 1]
-        S_ = _damped(U + unit_fixed, st[0]) - corr
-        # Jacobi-scale the reduced solve: parameter magnitudes span ~1e5
-        # (focal vs distortion vs extrinsic rotation); D S D has a unit
-        # diagonal and solves identically
-        dg = torch.sqrt(torch.clamp(torch.diagonal(S_), min=1e-12))
-        Sn = S_ / dg[:, None] / dg[None, :]
-        dx = cholesky_solve_batched_small(Sn, rhs / dg) / dg
+            p, loc = _multi_shard_system(fns[s], th.on(d), ex.on(d), poses_s[s], p2d_s[s],
+                                         w_s[s], fv_s[s], free_r.on(d), ext_free_r.on(d),
+                                         lm.on(d), opts.huber_delta)
+            packed.append(p)
+            local.append(loc)
+        dx, g_x = _multi_reduced_step(_reduce(packed, devices[0]), unit_fixed, st[0])
         dxr = _PerDevice(dx)
-        po_new = []
-        for s, d in enumerate(devices):
-            Ainv_Bt, Ainv_g = local[s]
-            dpo = -(Ainv_g + torch.einsum("fim,m->fi", Ainv_Bt, dxr.on(d)))
-            po_new.append(poses_s[s] + _finite_or_zero(dpo) * fv_s[s][:, None])
-        dx = _finite_or_zero(dx)
-        th_new = torch.clamp(theta + dx[: C * k].reshape(C, k) * free, lo, hi)
-        ex_new = ext + dx[C * k :].reshape(C, 6) * ext_free
-        # stop on a tiny relative decrease OR a vanished gradient (large
-        # joint problems keep finding micro-improvements at the noise floor)
-        gsmall = torch.max(torch.abs(g_x)) <= 1e-9 * torch.clamp(st[1], min=1.0)
+        po_new = [_multi_backsub(local[s], dxr.on(d), poses_s[s], fv_s[s])
+                  for s, d in enumerate(devices)]
+        th_new, ex_new = _multi_trial(theta, ext, _finite_or_zero(dx), free, ext_free, lo, hi)
+        # stop on a tiny relative decrease OR a vanished gradient
         accept, st = _lm_update(
             opts, stall_lam, st,
-            _multi_cost(static, fns, th_new, ex_new, po_new, p2d_s, w_s), gsmall)
+            _multi_cost(static, fns, th_new, ex_new, po_new, p2d_s, w_s),
+            _gradient_small(g_x, st[1]))
         theta = torch.where(accept, th_new, theta)
         ext = torch.where(accept, ex_new, ext)
         acc = _PerDevice(accept)
@@ -1032,6 +1408,142 @@ def _multi_chunk(*args):
                    for d, pn, po in zip(devices, po_new, poses_s)]
     _write(state, (theta, ext, *poses_s, *st))
     return _status(st)
+
+
+def _multi_holders(devices, problem, init):
+    """Example values of ``multi_ba_lm``'s per-shard buffers for
+    ``_shard_loop``: per shard (free, p3d, p2d, w, fv, poses; the iterate
+    message (theta, ext, lam, accept); the step (dx, trial theta, trial
+    ext); trial poses, Ainv_Bt, Ainv_g), and on the first device (lo, hi,
+    free, theta0, ext0; S partials, S costs; theta, ext, the six scalars;
+    the trial theta and ext and the vanished-gradient flag)."""
+    S = len(devices)
+    (lo, hi, free), p3d_s, p2d_s, w_s, fv_s, _ = _take(problem, 3, S, S, S, S)
+    theta0, ext0, poses0_s = init[0], init[1], init[2:]
+    C, k = theta0.shape
+    M, dev0 = C * k + 6 * C, theta0.device
+    shards = [(free.to(d), p3d_s[s], p2d_s[s], w_s[s], fv_s[s], poses0_s[s],
+               *_blank(theta0, d, (M + 2,), (2 * M,), (F, 6), (F, 6, M), (F, 6)))
+              for s, d in enumerate(devices) for F in [poses0_s[s].shape[0]]]
+    first = (lo, hi, free, theta0, ext0,
+             *_blank(theta0, dev0, *[(2 * M + 2, M)] * S, *[()] * S, (C, k), (C, 6)),
+             *_blank_scalars(theta0), *_blank(theta0, dev0, (C, k), (C, 6)),
+             torch.empty((), dtype=torch.bool, device=dev0))
+    return shards, first
+
+
+def _multi_shard(static, held):
+    """A shard's buffers and what they imply: (opts, free, ext_free, p2d,
+    w, fv, poses, message, step, trial poses, Ainv_Bt, Ainv_g) and its
+    per-camera functions' factory."""
+    project_fn, one_focal, opts, _, jac_f32, _ = static
+    free, p3d, *rest = held
+    return (opts, free, _ext_free(free.shape[0], free), *rest,
+            lambda f32=jac_f32: multi_frame_fns(project_fn, p3d, one_focal, free.shape[0], f32))
+
+
+def _multi_iterate(msg, C, k):
+    """(theta, ext, lam) of an iterate message."""
+    return (msg[: C * k].reshape(C, k).clone(), msg[C * k : C * k + 6 * C].reshape(C, 6).clone(),
+            msg[-2].clone())
+
+
+def _multi_system(*args):
+    """Phase (a) of ``multi_ba_lm`` on one shard: commit the accepted
+    poses, then the packed partial of the step at the received iterate."""
+    opts, free, ext_free, p2d, w, fv, poses, msg, _, po_new, ainv_bt, ainv_g, fns = (
+        _multi_shard(args[:6], args[6:]))
+    theta, ext, lam = _multi_iterate(msg, *free.shape)
+    poses.copy_(torch.where(msg[-1] > 0, po_new, poses))
+    packed, (a, g) = _multi_shard_system(fns(), theta, ext, poses, p2d, w, fv, free, ext_free,
+                                         lam, opts.huber_delta)
+    _write((ainv_bt, ainv_g), (a, g))
+    return packed
+
+
+def _multi_trial_cost(*args):
+    """Phase (c) of ``multi_ba_lm`` on one shard: back-substitute the
+    received step into trial poses; their local cost at the trial
+    intrinsics and extrinsics."""
+    opts, free, _, p2d, w, fv, poses, _, step, po_new, ainv_bt, ainv_g, fns = _multi_shard(
+        args[:6], args[6:])
+    C, k = free.shape
+    M = C * k + 6 * C
+    trial = _multi_backsub((ainv_bt, ainv_g), step[:M].clone(), poses, fv)
+    po_new.copy_(trial)
+    return _multi_local_cost(fns(False), step[M : M + C * k].reshape(C, k).clone(),
+                             step[M + C * k :].reshape(C, 6).clone(), trial, p2d, w,
+                             opts.huber_delta)
+
+
+def _multi_cost0(*args):
+    """The start of ``multi_ba_lm`` on one shard: the local cost at the
+    received iterate and the first poses."""
+    opts, free, _, p2d, w, _, poses, msg, *_, fns = _multi_shard(args[:6], args[6:])
+    theta, ext, _ = _multi_iterate(msg, *free.shape)
+    return _multi_local_cost(fns(False), theta, ext, poses, p2d, w, opts.huber_delta)
+
+
+def _multi_first(static, held):
+    """The first device's buffers and what they imply: (opts, stall lam,
+    lo, hi, free, ext_free, unit_fixed, theta0, ext0, partials, costs,
+    theta, ext, scalars, trial theta, trial ext, vanished-gradient
+    flag)."""
+    opts, mesh_rules, S = static[2], static[3], static[5]
+    (lo, hi, free, theta0, ext0), parts, costs, (theta, ext), st, scratch = _take(
+        held, 5, S, S, 2, 6)
+    ext_free = _ext_free(free.shape[0], free)
+    return (opts, 0.0 if mesh_rules else opts.stall_lam, lo, hi, free, ext_free,
+            _unit_fixed(free, ext_free), theta0, ext0, parts, costs, theta, ext, st, *scratch)
+
+
+def _multi_start_first(*args):
+    """The start of ``multi_ba_lm`` on the first device: the clamped
+    theta0 and ext0, and the iterate message (theta, ext, lam0, no
+    accept)."""
+    opts, _, lo, hi, _, _, _, theta0, ext0, _, _, theta, ext, *_ = _multi_first(
+        args[:6], args[6:])
+    _write((theta, ext), (torch.clamp(theta0, lo, hi), ext0))
+    return _iterate_message((theta, ext), _lam0(opts, theta),
+                            theta.new_zeros((), dtype=torch.bool))
+
+
+def _multi_scalars(*args):
+    """The start of ``multi_ba_lm`` on the first device: fresh scalars
+    beside the summed costs."""
+    opts, *_, costs, _, _, st, _, _, _ = _multi_first(args[:6], args[6:])
+    _write(st, _lm_scalars(opts, _reduce(costs, costs[0].device)))
+
+
+def _multi_solve_first(*args):
+    """Phase (b) of ``multi_ba_lm`` on the first device: the partials
+    summed in shard order, the M x M solve, the trial iterate and the
+    vanished-gradient test; returns the step the shards receive (the raw
+    step, the trial theta and ext)."""
+    (_, _, lo, hi, free, ext_free, unit_fixed, _, _, parts, _, theta, ext, st, th_new, ex_new,
+     gsmall) = _multi_first(args[:6], args[6:])
+    dx, g_x = _multi_reduced_step(_reduce(parts, theta.device), unit_fixed, st[0])
+    th_t, ex_t = _multi_trial(theta, ext, _finite_or_zero(dx), free, ext_free, lo, hi)
+    _write((th_new, ex_new, gsmall), (th_t, ex_t, _gradient_small(g_x, st[1])))
+    return torch.cat([dx, th_t.reshape(-1), ex_t.reshape(-1)])
+
+
+def _multi_update(*args):
+    """Phase (d) of ``multi_ba_lm`` on the first device: the costs summed
+    in shard order, the LM's verdict; returns (the iterate message,
+    ``_status``)."""
+    opts, stall_lam, *_, costs, theta, ext, st, th_new, ex_new, gsmall = _multi_first(
+        args[:6], args[6:])
+    accept, st_n = _lm_update(opts, stall_lam, tuple(st), _reduce(costs, theta.device), gsmall)
+    theta_n = torch.where(accept, th_new, theta)
+    ext_n = torch.where(accept, ex_new, ext)
+    _write((theta, ext, *st), (theta_n, ext_n, *st_n))
+    return _iterate_message((theta_n, ext_n), st_n[0], accept), _status(st_n)
+
+
+_MULTI_PHASES = _Phases(start=_multi_start_first, cost0=_multi_cost0, scalars=_multi_scalars,
+                        system=_multi_system, solve=_multi_solve_first, trial=_multi_trial_cost,
+                        update=_multi_update)
 
 
 def ba_solve_multi_mixed(

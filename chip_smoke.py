@@ -316,17 +316,18 @@ def card_label() -> str:
 
 
 def sync_time(torch, fn):
-    """Run fn, synchronize the card, return (result, seconds).  The
+    """Run fn, synchronize every visible card, return (result, seconds).  The
     synchronize waits for a capture on another thread to end
     (``graphs.synchronize``): the speculation thread may be capturing its
     solver graphs when detection returns, and CUDA fails a device-wide
     synchronize while any stream captures."""
     from ccrs_tpu_torch import graphs
 
-    graphs.synchronize()
+    cards = list(range(torch.cuda.device_count()))
+    graphs.synchronize(cards)
     t0 = time.perf_counter()
     out = fn()
-    graphs.synchronize()
+    graphs.synchronize(cards)
     return out, time.perf_counter() - t0
 
 
@@ -509,12 +510,14 @@ def recall_gate(tracked, cold, cold_every, label):
 
 def profile_run(torch, fn):
     """Run fn under torch.profiler: device busy seconds (the CUDA kernel and
-    copy events), wall seconds of the profiled run, the names of the CUDA
-    kernels run, and the host launch calls it made (the CUDA runtime's
-    kernel launches, ``cudaLaunchKernel`` and its variants, and
-    ``cudaGraphLaunch``, as CPU-side events).  Reads the profiler's raw
-    events: building its per-op event objects (``prof.events()``) takes
-    tens of microseconds an op, seconds per run."""
+    copy events, every card summed, and per card), wall seconds of the
+    profiled run, the names of the CUDA kernels run, the host launch calls
+    it made (the CUDA runtime's kernel launches, ``cudaLaunchKernel`` and
+    its variants, and ``cudaGraphLaunch``, as CPU-side events) and its
+    copy and fill calls (``cudaMemcpy*``, ``cudaMemset*``).  Reads the
+    profiler's raw events: building its per-op event objects
+    (``prof.events()``) takes tens of microseconds an op, seconds per
+    run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -525,11 +528,16 @@ def profile_run(torch, fn):
     host = [e.name() for e in events if e.device_type() != DeviceType.CUDA]
     graph_launches = sum(n == "cudaGraphLaunch" for n in host)
     kernel_launches = sum("LaunchKernel" in n for n in host)
+    by_card = {}
+    for e in device:
+        by_card[e.device_index()] = by_card.get(e.device_index(), 0) + e.duration_ns() / 1e9
     return dict(busy_s=sum(e.duration_ns() for e in device) / 1e9, wall_s=wall,
+                busy_by_card_s=by_card,
                 kernels=[e.name() for e in device
                          if not e.name().startswith(("Memcpy", "Memset"))],
                 launch_calls=kernel_launches + graph_launches,
-                graph_launches=graph_launches)
+                graph_launches=graph_launches,
+                copy_calls=sum(n.startswith(("cudaMemcpy", "cudaMemset")) for n in host))
 
 
 def device_busy_share(torch, fn):
@@ -1048,93 +1056,131 @@ def run_cli_phase(card):
     return frames, launches, joint, fresh
 
 
+def fresh_run(tmp, ds, gt, tag, out, prewarm, mode, env_extra=None):
+    """One fresh CLI process (``FRESH_CHILD``) on the cli phase's dataset,
+    written to ``out``, and its gates (exit 0, on the card, no warm-up or
+    speculation error, threshold launches, focal and medians).  Returns
+    (its record, its artifacts' bytes)."""
+    from ccrs_tpu_torch.models import model_from_json
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.update(CCRS_PREWARM=prewarm, CCRS_TIMING="1",
+               PYTHONPATH=root + os.pathsep + env.get("PYTHONPATH", ""), **(env_extra or {}))
+    env.pop("CCRS_TRACK", None)
+    argv = [ds, "--model", "eucm", "--cam-num", "2", "--platform", "cuda", "--no-rerun",
+            "--seed", "1", "-o", out]
+    cmd = [sys.executable, "-c", FRESH_CHILD, mode, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=tmp, timeout=600)
+    wall = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tag} exited {proc.returncode}: {text[-3000:]}")
+    if "device: cuda" not in proc.stdout:
+        raise RuntimeError(f"{tag} did not run on the card: {proc.stdout[:300]}")
+    for word in ("prewarm error", "speculation error", "prewarm failed",
+                 "speculative calibration failed", "Traceback"):
+        if word in text:
+            raise RuntimeError(f"{tag} reported '{word}': {text[-3000:]}")
+    detect = re.search(r"detecting feature took ([0-9.]+) sec", proc.stdout)
+    warm = re.search(r"prewarm took ([0-9.]+) sec", proc.stdout)
+    count = re.search(r"threshold kernel launches: (\d+) \(prewarm (\d+)\)", proc.stdout)
+    held = re.search(r"^graphs held: (.*)$", proc.stdout, re.M)
+    if not (detect and count and held):
+        raise RuntimeError(f"{tag} printed no detection time, launch count or graphs held")
+    held = json.loads(held.group(1))
+    total, by_warmup = int(count.group(1)), int(count.group(2))
+    if (warm is not None) != (prewarm == "1") or (by_warmup > 0) != (prewarm == "1"):
+        raise RuntimeError(f"{tag} warm-up ran {warm is not None} with {by_warmup} launches")
+    if total - by_warmup <= 0:
+        raise RuntimeError(f"{tag} the run never launched the threshold kernel")
+    stages = dict(
+        (m.group(1), float(m.group(2)))
+        for m in re.finditer(r"^  (\S+)\s+([0-9.]+)s  x\d+$", proc.stdout, re.M)
+    )
+    print(f"{tag} wall {wall:.3f} s from process start to exit; detecting feature took "
+          f"{float(detect.group(1)):.3f} s; prewarm "
+          f"{'took ' + warm.group(1) + ' s' if warm else 'off'}; threshold kernel launches "
+          f"{total} ({by_warmup} by the warm-up); at its end {held['graphs']} graphs "
+          f"held, pools {held['pool_mib']:.1f} MiB ({held['captures']} captures in "
+          f"{held['capture_s']:.3f} s)")
+    for name in sorted(stages, key=lambda k: -stages[k]):
+        print(f"{tag}   {name:26s} {stages[name]:8.3f} s")
+    files = {}
+    for name in ("cam0.json", "cam1.json", "extrinsics.json"):
+        with open(os.path.join(out, name), "rb") as f:
+            files[name] = f.read()
+    fx = [abs(model_from_json(os.path.join(out, f"cam{c}.json")).params[0] - gt.params[0])
+          / gt.params[0] for c in range(2)]
+    with open(os.path.join(out, "report.txt")) as f:
+        medians = [float(v) for v in
+                   re.findall(r"median  reprojection error: ([0-9.]+) px", f.read())]
+    if not (max(fx) < 0.01 and len(medians) == 2 and max(medians) < 0.3):
+        raise RuntimeError(f"{tag} focal {fx} or medians {medians} off")
+    print(f"{tag} focal err {[f'{e:.4%}' for e in fx]}, medians {medians} px")
+    return dict(prewarm=prewarm, mode=mode, wall_s=wall, detect_s=float(detect.group(1)),
+                prewarm_s=float(warm.group(1)) if warm else None,
+                launches=total - by_warmup, launches_prewarm=by_warmup,
+                stages=stages, graphs_held=held), files
+
+
 def run_fresh_phase(tmp, ds, gt, card):
     """The CLI as a user starts it: a new process per run (``cli.main`` in
     a ``python -c`` wrapper, ``FRESH_CHILD``), on the cli phase's dataset:
     the warm-up on, then with it off the card's default (graphs),
     everything eager (``graphs.eager()``) and calibration eager with
     detection graphed (``solvers_eager``) in turns (``FRESH_RUNS``).  Every
-    run's artifacts equal byte for byte.  Returns one record per run (wall
-    seconds, the lines it printed about itself, its threshold launches,
-    the graphs it held at its end and their pools)."""
-    from ccrs_tpu_torch.models import model_from_json
+    run's artifacts equal byte for byte.  With several cards visible, two
+    more runs of the default: every card visible (the joint BA and
+    detection shard over them), then ``CUDA_VISIBLE_DEVICES=0``; their
+    parameters and extrinsics within 1e-8 of run 0's.  Returns one record
+    per run (wall seconds, the lines it printed about itself, its
+    threshold launches, the graphs it held at its end and their pools)."""
+    import torch
 
-    root = os.path.dirname(os.path.abspath(__file__))
+    from ccrs_tpu_torch.io import object_from_json
+    from ccrs_tpu_torch.models import model_from_json
+    from ccrs_tpu_torch.types import RvecTvec
+
     runs, first = [], None
     for i, (prewarm, mode) in enumerate(FRESH_RUNS):
         tag = f"[fresh {i}, CCRS_PREWARM={prewarm}, {mode}] ({card})"
-        out = os.path.join(tmp, f"fresh{i}")
-        env = dict(os.environ)
-        env.update(CCRS_PREWARM=prewarm, CCRS_TIMING="1",
-                   PYTHONPATH=root + os.pathsep + env.get("PYTHONPATH", ""))
-        env.pop("CCRS_TRACK", None)
-        argv = [ds, "--model", "eucm", "--cam-num", "2", "--platform", "cuda", "--no-rerun",
-                "--seed", "1", "-o", out]
-        cmd = [sys.executable, "-c", FRESH_CHILD, mode, *argv]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=tmp,
-                              timeout=600)
-        wall = time.perf_counter() - t0
-        text = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"{tag} exited {proc.returncode}: {text[-3000:]}")
-        if "device: cuda" not in proc.stdout:
-            raise RuntimeError(f"{tag} did not run on the card: {proc.stdout[:300]}")
-        for word in ("prewarm error", "speculation error", "prewarm failed",
-                     "speculative calibration failed", "Traceback"):
-            if word in text:
-                raise RuntimeError(f"{tag} reported '{word}': {text[-3000:]}")
-        detect = re.search(r"detecting feature took ([0-9.]+) sec", proc.stdout)
-        warm = re.search(r"prewarm took ([0-9.]+) sec", proc.stdout)
-        count = re.search(r"threshold kernel launches: (\d+) \(prewarm (\d+)\)", proc.stdout)
-        held = re.search(r"^graphs held: (.*)$", proc.stdout, re.M)
-        if not (detect and count and held):
-            raise RuntimeError(f"{tag} printed no detection time, launch count or graphs held")
-        held = json.loads(held.group(1))
-        total, by_warmup = int(count.group(1)), int(count.group(2))
-        if (warm is not None) != (prewarm == "1") or (by_warmup > 0) != (prewarm == "1"):
-            raise RuntimeError(f"{tag} warm-up ran {warm is not None} with {by_warmup} launches")
-        if total - by_warmup <= 0:
-            raise RuntimeError(f"{tag} the run never launched the threshold kernel")
-        stages = dict(
-            (m.group(1), float(m.group(2)))
-            for m in re.finditer(r"^  (\S+)\s+([0-9.]+)s  x\d+$", proc.stdout, re.M)
-        )
-        print(f"{tag} wall {wall:.3f} s from process start to exit; detecting feature took "
-              f"{float(detect.group(1)):.3f} s; prewarm "
-              f"{'took ' + warm.group(1) + ' s' if warm else 'off'}; threshold kernel launches "
-              f"{total} ({by_warmup} by the warm-up); at its end {held['graphs']} graphs "
-              f"held, pools {held['pool_mib']:.1f} MiB ({held['captures']} captures in "
-              f"{held['capture_s']:.3f} s)")
-        for name in sorted(stages, key=lambda k: -stages[k]):
-            print(f"{tag}   {name:26s} {stages[name]:8.3f} s")
-
-        files = {}
-        for name in ("cam0.json", "cam1.json", "extrinsics.json"):
-            with open(os.path.join(out, name), "rb") as f:
-                files[name] = f.read()
+        rec, files = fresh_run(tmp, ds, gt, tag, os.path.join(tmp, f"fresh{i}"), prewarm, mode)
         if first is None:
             first = files
         for name, blob in files.items():
             if blob != first[name]:
                 raise RuntimeError(f"{tag} {name} differs from run 0's: warm-up changed a result")
-        fx = [abs(model_from_json(os.path.join(out, f"cam{c}.json")).params[0] - gt.params[0])
-              / gt.params[0] for c in range(2)]
-        with open(os.path.join(out, "report.txt")) as f:
-            medians = [float(v) for v in
-                       re.findall(r"median  reprojection error: ([0-9.]+) px", f.read())]
-        print(f"{tag} focal err {[f'{e:.4%}' for e in fx]}, medians {medians} px; cam0.json, "
-              f"cam1.json, extrinsics.json equal run 0's byte for byte")
-        if not (max(fx) < 0.01 and len(medians) == 2 and max(medians) < 0.3):
-            raise RuntimeError(f"{tag} focal {fx} or medians {medians} off")
-        runs.append(dict(prewarm=prewarm, mode=mode, wall_s=wall,
-                         detect_s=float(detect.group(1)),
-                         prewarm_s=float(warm.group(1)) if warm else None,
-                         launches=total - by_warmup, launches_prewarm=by_warmup,
-                         stages=stages, graphs_held=held))
+        print(f"{tag} cam0.json, cam1.json, extrinsics.json equal run 0's byte for byte")
+        runs.append(rec)
+    n = torch.cuda.device_count()
+    for i, visible in enumerate((None, "0") if n > 1 else (), start=len(runs)):
+        tag = (f"[fresh {i}, CCRS_PREWARM=0, graphs, "
+               f"{'CUDA_VISIBLE_DEVICES=0' if visible else f'{n} cards visible'}] ({card})")
+        out = os.path.join(tmp, f"fresh{i}")
+        rec, _ = fresh_run(tmp, ds, gt, tag, out, "0", "graphs",
+                           {"CUDA_VISIBLE_DEVICES": visible} if visible else None)
+        p_rel = max(float(np.max(np.abs(model_from_json(os.path.join(out, f"cam{c}.json")).params
+                                        - model_from_json(os.path.join(tmp, "fresh0",
+                                                                       f"cam{c}.json")).params)
+                                 / np.abs(model_from_json(os.path.join(
+                                     tmp, "fresh0", f"cam{c}.json")).params)))
+                    for c in range(2))
+        ext = [RvecTvec.from_json(object_from_json(os.path.join(d, "extrinsics.json"))["rtvecs"][1])
+               for d in (out, os.path.join(tmp, "fresh0"))]
+        e_abs = float(np.max(np.abs(np.concatenate([ext[0].rvec - ext[1].rvec,
+                                                    ext[0].tvec - ext[1].tvec]))))
+        print(f"{tag} joint_ba {rec['stages'].get('joint_ba', float('nan')):.3f} s; against run "
+              f"0: parameters max rel diff {p_rel:.3e}, extrinsic max diff {e_abs:.3e}")
+        if not (p_rel < 1e-8 and e_abs < 1e-8):
+            raise RuntimeError(f"{tag} left run 0's result: {p_rel:.3e}, {e_abs:.3e}")
+        runs.append(dict(rec, visible=visible or f"{n} cards", params_rel=p_rel, ext_abs=e_abs))
     walls = {}
     for r in runs:
-        walls.setdefault(f"CCRS_PREWARM={r['prewarm']}, {r['mode']}", []).append(r["wall_s"])
+        key = f"CCRS_PREWARM={r['prewarm']}, {r['mode']}" + (
+            f", {r['visible']} visible" if "visible" in r else "")
+        walls.setdefault(key, []).append(r["wall_s"])
     print(f"[fresh] ({card}) process wall: " + "; ".join(
         f"{k}: {', '.join(f'{t:.3f}' for t in v)} s" for k, v in walls.items())
         + " (in turns; no gate on time)")
@@ -1490,15 +1536,183 @@ def observe_shard_launches(det, counts):
         del det._detect_batch_cold
 
 
+def card_graphs():
+    """{card: [graphs held, MiB their captures added to the card's reserved
+    memory]} over the graph cache."""
+    from ccrs_tpu_torch import graphs
+
+    out = {}
+    for g in list(graphs._cache.values()):
+        entry = out.setdefault(str((g.inputs or g.bound)[0].device), [0, 0.0])
+        entry[0] += 1
+        entry[1] += g.pool_bytes / 2**20
+    return out
+
+
+def compare_shard_routes(card, tag, solve, forced, n_shards):
+    """``solve()``, a frame-sharded solve, through the per-shard route
+    (``lm._shard_loop``: per-shard graphs and the copies between them; on
+    one card inside ``lm.shard_graphs()``) against the eager sharded route
+    (``graphs.eager()``): a first run from an empty graph cache (captures
+    and pools per card), a second that must capture nothing, then eager
+    and per-shard in turns (eager, shards, shards, eager, eager, shards):
+    results and iterations equal bit for bit to the first run; best of 3
+    walls and the spread; one profiled run of each: host launch calls
+    (kernel and graph launches) and copy calls per LM iteration, card ms
+    per iteration, host reads.  The per-shard route must make at most 10
+    launch and copy calls per shard per iteration, plus 5.  Returns
+    (numbers, failures)."""
+    import torch
+
+    from ccrs_tpu_torch import graphs
+    from ccrs_tpu_torch.solve import lm
+
+    def scope(mode):
+        return graphs.eager() if mode == "eager" else lm.shard_graphs(forced)
+
+    def run(mode):
+        with scope(mode):
+            lm.reset_loop_counts()
+            out, wall = sync_time(torch, solve)
+            return out, wall, lm.loop_counts()
+
+    failed = []
+    graphs.reset()
+    torch.cuda.empty_cache()
+    graphs.reset_counts()
+    first, t_first, loops = run("shards")
+    counts, held = graphs.counts(), card_graphs()
+    graphs.reset_counts()
+    _, t_second, _ = run("shards")
+    second = graphs.counts()["captures"]
+    if second:
+        failed.append(f"{tag} the second per-shard run captured {second} graphs")
+    if loops["routes"]["shards"] != loops["solves"]:
+        failed.append(f"{tag} not every solve took the per-shard route: {loops}")
+    ref = result_bits(first)
+    runs = {"eager": [], "shards": []}
+    for mode in ("eager", "shards", "shards", "eager", "eager", "shards"):
+        out, wall, lp = run(mode)
+        if not same_bits(result_bits(out), ref) or lp["iters"] != loops["iters"]:
+            failed.append(f"{tag} {mode} differs from the first per-shard run (iterations "
+                          f"{lp['iters']} against {loops['iters']})")
+        runs[mode].append(dict(wall_s=wall, **lp))
+    spread = max(max(r["wall_s"] for r in rs) - min(r["wall_s"] for r in rs)
+                 for rs in runs.values())
+    entry = dict(first_run=dict(wall_s=t_first, captures=counts["captures"],
+                                capture_s=counts["capture_s"], graphs_by_card=held),
+                 second_run_s=t_second, spread_s=spread)
+    print(f"{tag} per-shard route, first run {t_first:.4f} s: {counts['captures']} captures in "
+          f"{counts['capture_s']:.3f} s; per card (graphs, pool MiB) "
+          f"{ {d: (n, round(mib, 1)) for d, (n, mib) in held.items()} }; second run "
+          f"{t_second:.4f} s captured {second}")
+    for mode, rs in runs.items():
+        with scope(mode):
+            lm.reset_loop_counts()
+            prof = profile_run(torch, solve)
+            lp = lm.loop_counts()
+        per = max(lp["iters"], 1)
+        e = entry[mode] = dict(
+            walls_s=[r["wall_s"] for r in rs], best_s=min(r["wall_s"] for r in rs),
+            iters=lp["iters"], reads=lp["chunks"], masked=lp["masked"], solves=lp["solves"],
+            routes=lp["routes"], launch_calls=prof["launch_calls"],
+            copy_calls=prof["copy_calls"],
+            calls_per_iter=(prof["launch_calls"] + prof["copy_calls"]) / per,
+            device_ms_per_iter=prof["busy_s"] * 1e3 / per,
+            device_ms_per_iter_by_card={str(d): b * 1e3 / per
+                                        for d, b in prof["busy_by_card_s"].items()},
+            busy_share=prof["busy_s"] / prof["wall_s"])
+        print(f"{tag} {mode}: walls {', '.join(f'{w:.4f}' for w in e['walls_s'])} s, best "
+              f"{e['best_s']:.4f} s; {e['iters']} LM iterations in {e['solves']} solves, "
+              f"{e['reads']} host reads, {e['masked']} masked; host calls {prof['launch_calls']} "
+              f"launches + {prof['copy_calls']} copies ({e['calls_per_iter']:.1f} per iteration); "
+              f"card {e['device_ms_per_iter']:.3f} ms per iteration (by card "
+              f"{ {d: round(v, 3) for d, v in e['device_ms_per_iter_by_card'].items()} }), "
+              f"busy {e['busy_share']:.1%} of {prof['wall_s']:.4f} s")
+    limit = 10 * n_shards + 5
+    entry["calls_limit_per_iter"] = limit
+    print(f"{tag} best per-shard {entry['shards']['best_s']:.4f} s, eager "
+          f"{entry['eager']['best_s']:.4f} s, spread {spread:.4f} s; results and n_iters equal "
+          f"bit for bit in every run; per-shard calls per iteration "
+          f"{entry['shards']['calls_per_iter']:.1f} (limit {limit}), eager "
+          f"{entry['eager']['calls_per_iter']:.1f}")
+    if entry["shards"]["calls_per_iter"] > limit:
+        failed.append(f"{tag} {entry['shards']['calls_per_iter']:.1f} host calls per iteration "
+                      f"on the per-shard route (limit {limit})")
+    return entry, failed
+
+
+def mesh_rig(card, mesh, forced):
+    """bench_multicam.py's rig (8 cameras x 1000 frames, float64) through
+    ``multi_ba_sharded`` on the mesh (per-shard route; forced on one card)
+    against ``ba_solve_multi`` on one card, both graphed and warm (a first
+    run of each captures): walls and iterations, the rig's gates, and the
+    RMS within 1e-6 px of the one-card solve's (the interchange target:
+    the shards sum in another order, so the flat optimum's 1e-14 relative
+    stop may fall at another iteration; theta's difference is printed)."""
+    import torch
+
+    from ccrs_tpu_torch import graphs
+    from ccrs_tpu_torch.models.projections import project_fn
+    from ccrs_tpu_torch.parallel import mesh as pmesh
+    from ccrs_tpu_torch.solve import lm
+    from ccrs_tpu_torch.testdata import rig_errors, rig_problem
+
+    tag = f"[mesh rig {RIG['n_cams']}x{RIG['n_frames']} float64, {len(mesh)} shards] ({card})"
+    proj = project_fn("eucm")
+    problem = rig_problem(seed=0, device="cuda", **RIG)
+    args = problem["args"]
+    out = {}
+    for name, fn in (("one card", lambda: lm.ba_solve_multi(proj, *args)),
+                     ("sharded", lambda: pmesh.multi_ba_sharded(proj, *args, mesh=mesh))):
+        graphs.reset()
+        torch.cuda.empty_cache()
+        with lm.shard_graphs(forced and name == "sharded"):
+            _, first = sync_time(torch, fn)
+            lm.reset_loop_counts()
+            res, wall = sync_time(torch, fn)
+            loops = lm.loop_counts()
+        err = rig_errors(problem, res)
+        out[name] = dict(first_s=first, wall_s=wall, iters=res.n_iters, routes=loops["routes"],
+                         reads=loops["chunks"], theta=res.theta, **err)
+        print(f"{tag} {name}: first run {first:.3f} s (captures), warm {wall:.3f} s, "
+              f"{res.n_iters} iterations, {loops['chunks']} host reads, routes {loops['routes']}; "
+              f"focal err {err['focal_rel_err']:.3e}, extrinsic err {err['ext_err']:.3e}, "
+              f"rms {err['rms_px']:.9f} px")
+        if not (err["focal_rel_err"] < 3e-3 and err["ext_err"] < 3e-3
+                and 0.07 < err["rms_px"] < 0.13):
+            raise RuntimeError(f"{tag} {name} missed the rig's gates: {err}")
+    one, sh = out["one card"].pop("theta"), out["sharded"].pop("theta")
+    rel = float(((sh - one).abs() / one.abs()).max())
+    d_rms = abs(out["sharded"]["rms_px"] - out["one card"]["rms_px"])
+    per = {k: v["wall_s"] * 1e3 / v["iters"] for k, v in out.items()}
+    print(f"{tag} sharded warm {out['sharded']['wall_s']:.3f} s ({per['sharded']:.1f} ms per "
+          f"iteration) against one card {out['one card']['wall_s']:.3f} s "
+          f"({per['one card']:.1f} ms per iteration); |rms difference| {d_rms:.3e} px, theta "
+          f"max rel diff {rel:.3e}")
+    if not d_rms < 1e-6:
+        raise RuntimeError(f"{tag} the sharded rig left the one-card optimum by {d_rms:.3e} px")
+    if out["sharded"]["routes"]["shards"] != 1:
+        raise RuntimeError(f"{tag} the sharded rig did not take the per-shard route")
+    del problem, args
+    graphs.reset()
+    torch.cuda.empty_cache()
+    return dict(out, theta_rel=rel, rms_diff_px=d_rms, ms_per_iter=per)
+
+
 def run_mesh_phase(card, frames512, run512, board, joint):
     """The multi-device layer on the mesh of every visible card (two shards
     of cuda:0 when only one is visible): the 512 phase's final problem
     through ``make_ba_solver`` against ``ba_solve``, the cli phase's joint
     problem through the joint BA's sharded route (``multi_ba_sharded``)
-    against its single-device route and a CPU float64 re-solve, and the
-    first N_MESH_DETECT frames of the 512 sequence through
+    against its single-device route and a CPU float64 re-solve; both
+    problems through the per-shard route against the eager sharded route
+    (``compare_shard_routes``; on one card the per-shard route is forced),
+    the rig sharded against one card (``mesh_rig``); and the first
+    N_MESH_DETECT frames of the 512 sequence through
     ``TagDetector(shard=True)``, tracked and cold, against the unsharded
-    detector.  Returns the threshold launches of the sharded detections."""
+    detector.  Returns (numbers, the threshold launches of the sharded
+    detections)."""
     import torch
 
     from ccrs_tpu_torch.calib import multi
@@ -1508,12 +1722,19 @@ def run_mesh_phase(card, frames512, run512, board, joint):
     from ccrs_tpu_torch.parallel import mesh as pmesh
     from ccrs_tpu_torch.solve.lm import ba_solve
 
+    t_phase = time.perf_counter()
     mesh = pmesh.make_mesh()
     if len(mesh) == 1:
         mesh = [mesh[0], mesh[0]]
     n_cards = len({str(d) for d in mesh})
+    forced = n_cards == 1
     tag = f"[mesh {len(mesh)} shards on {n_cards} card(s)] ({card})"
     print(f"{tag} mesh {[str(d) for d in mesh]}, {n_cards} distinct card(s)")
+    n = torch.cuda.device_count()
+    peers = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+             for i in range(n) for j in range(n) if i != j}
+    print(f"{tag} peer access between cards: {peers or 'one card'}")
+    result, failed = dict(mesh=[str(d) for d in mesh], peer_access=peers), []
 
     # single camera: the sharded LM against ba_solve on the card
     batch, model, rtvecs = run512["batch"], run512["model"], run512["rtvecs"]
@@ -1535,11 +1756,16 @@ def run_mesh_phase(card, frames512, run512, board, joint):
     )
     if not (rel < 1e-9 and abs(rms_sh - rms_one) < 1e-6):
         raise RuntimeError(f"{tag} the sharded single-camera solve left ba_solve's optimum")
+    result["single"], bad = compare_shard_routes(
+        card, f"{tag} single camera, {F} frames,", lambda: pmesh.make_ba_solver(proj, mesh)(
+            theta0, poses_p, p3d, p2d_p, w_p, lo, hi, free, fv_p), forced, len(mesh))
+    failed += bad
 
     # the joint BA: its sharded route against its single-device route
-    routed = []
+    routed, calls = [], []
     real = multi.multi_ba_sharded
-    multi.multi_ba_sharded = lambda *a, **k: routed.append(len(k["mesh"])) or real(*a, **k)
+    multi.multi_ba_sharded = lambda *a, **k: routed.append(len(k["mesh"])) or calls.append(
+        (a, k)) or real(*a, **k)
     try:
         with pmesh.default_mesh(mesh):
             sh, t_jsh = sync_time(torch, lambda: multi.calib_all_camera_with_extrinsics(
@@ -1567,6 +1793,12 @@ def run_mesh_phase(card, frames512, run512, board, joint):
     if not (p_rel < 1e-8 and e_abs < 1e-8 and d_rms < 1e-6):
         raise RuntimeError(f"{tag} the sharded joint BA left ba_solve_multi's optimum")
     cpu_joint_gate(joint, sh, f"{tag} sharded joint BA:")
+    # the joint BA's sharded solve as the CLI's route calls it
+    a, k = calls[0]
+    result["joint"], bad = compare_shard_routes(
+        card, f"{tag} joint BA,", lambda: real(*a, **k), forced, len(mesh))
+    failed += bad
+    result["rig"] = mesh_rig(card, mesh, forced)
 
     # detection: sharded equals unsharded bit for bit, tracked and cold
     frames = frames512[:N_MESH_DETECT].contiguous()
@@ -1594,7 +1826,10 @@ def run_mesh_phase(card, frames512, run512, board, joint):
         if n <= 0 or min(per_shard) <= 0 or sum(per_shard) != n:
             raise RuntimeError(f"{tag} {name}: a shard never launched the threshold kernel")
     print(f"{tag} sharded detection == unsharded bit for bit, tracked and cold")
-    return launches
+    print(f"{tag} phase took {time.perf_counter() - t_phase:.1f} s")
+    if failed:  # after the measurements, so that a failed run still shows them
+        raise RuntimeError("mesh phase gates failed: " + "; ".join(failed))
+    return result, launches
 
 
 def run_undistort_phase(card, frame):
@@ -2790,7 +3025,8 @@ def solver_default(card, solver, fresh):
     beside them, and judge nothing: they switch detection's graphs off too."""
     from ccrs_tpu_torch import graphs
 
-    off = {m: [r["wall_s"] for r in fresh if r["prewarm"] == "0" and r["mode"] == m]
+    off = {m: [r["wall_s"] for r in fresh
+               if r["prewarm"] == "0" and r["mode"] == m and "visible" not in r]
            for m in ("graphs", "solvers_eager", "eager")}
     spread = max(max(off[m]) - min(off[m]) for m in ("graphs", "solvers_eager"))
     gap = min(off["graphs"]) - min(off["solvers_eager"])
@@ -2864,8 +3100,9 @@ def main() -> int:
         raise RuntimeError("the fresh-process CLI runs never launched the threshold kernel")
     from ccrs_tpu_torch.board import create_default_6x6_board
 
+    mesh_phase, launches_mesh = run_mesh_phase(card, frames512, run512,
+                                               create_default_6x6_board(), joint)
     rig, rig_eager = run_rig_phase(card, run512, create_default_6x6_board())
-    launches_mesh = run_mesh_phase(card, frames512, run512, create_default_6x6_board(), joint)
     solver, launches_solver = run_solver_phase(card, frames512, run512,
                                                create_default_6x6_board(), rig_eager)
     del rig_eager
@@ -2899,6 +3136,7 @@ def main() -> int:
     print(json.dumps({"sampling": sampling, "card": card}))
     print(json.dumps({"graphs": graphs_phase, "card": card}))
     print(json.dumps({"solver": solver, "card": card}))
+    print(json.dumps({"mesh": mesh_phase, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "threshold_front",
         "route": "cuda",

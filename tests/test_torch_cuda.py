@@ -17,7 +17,12 @@ graphs; calibration's captured graphs (``solve/lm.py``'s device loop and
 ``graphs.call``) against eager, bit for bit, a second solve capturing
 nothing, a chunk without a synchronizing call, two threads solving one
 shape at once, a solver capture beside device-wide synchronizes, and the
-calibration warm-up capturing nothing.  The card-vs-CPU comparisons run the CPU side in the card's sampling branch
+calibration warm-up capturing nothing; the frame-sharded LM's per-shard
+graphs (``lm.shard_graphs``, the route of a mesh over several cards) over
+two shards of the card and over every visible card against the eager
+sharded route, bit for bit, a second solve capturing nothing, the copies
+between phases ordered behind delayed sources, and ``graphs.keep``
+bounding each card's graphs.  The card-vs-CPU comparisons run the CPU side in the card's sampling branch
 (``sample.matmul_branch``).  They skip without a CUDA device.
 
 This file imports neither jax nor ``ccrs_tpu``, so it also runs on a
@@ -549,7 +554,9 @@ def test_cold_pipeline_on_the_card_equals_chunk_by_chunk(card, shape, mode, monk
     if mode == "graphs" and shape == "534x512x512":
         plan = [64] * 8 + [8, 8, 6]
     board = create_default_6x6_board()
-    det = TagDetector("t36h11", track=False, device=card)
+    # one device's pipeline: with several cards visible the detector would
+    # shard the batch by default, and each shard takes its own plan
+    det = TagDetector("t36h11", track=False, shard=False, device=card)
     sizes = []
     real = TD.threshold_front
     monkeypatch.setattr(TD, "threshold_front",
@@ -1155,5 +1162,174 @@ def test_solver_graphs_of_many_shapes_stay_bounded(card):
     for i, captures in ((n + 3, 0), (0, 2)):
         core.reset_counts()
         assert _same_solver_bits(lm.ba_solve(project_eucm, *problems[i]), wants[i])
+        assert core.counts()["captures"] == captures, i
+    core.reset()
+
+
+# --------------------------------------------------------------------------
+# the frame-sharded LM's per-shard graphs
+# --------------------------------------------------------------------------
+
+
+def _shard_mesh(card, cards):
+    """Two shards of the card, or every visible card (skip below two)."""
+    if cards == "one card":
+        return [card, card]
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more visible cards")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _shard_solve(name):
+    """name -> solve over a mesh: the single camera through
+    ``make_ba_solver`` (64 frames, 0.3 px noise), the joint BA through
+    ``multi_ba_sharded`` and ``multi_ba_sharded_mixed`` (3 cameras x 42
+    frames of ``testdata.rig_problem``: the padding path on 4 and 8
+    cards)."""
+    from ccrs_tpu_torch.models.projections import project_eucm
+    from ccrs_tpu_torch.parallel import mesh
+    from ccrs_tpu_torch.testdata import rig_problem
+
+    if name == "make_ba_solver":
+        board, batch, poses = _calib_problem(64, 5, "cpu")
+        args = _ba_args(batch, poses, board, "cuda")
+        return lambda m: mesh.make_ba_solver(project_eucm, m)(*args)
+    rig = rig_problem(3, 42, seed=1, device="cuda")["args"]
+    fn = getattr(mesh, name)
+    return lambda m: fn(project_eucm, *rig, mesh=m)
+
+
+def _result_bytes(res):
+    """Every number of a BAResult / MultiBAResult, iterations included."""
+    return [x.cpu().numpy().tobytes() if isinstance(x, torch.Tensor) else x for x in res]
+
+
+def _per_shard(solve, m, cards):
+    """``solve(m)`` on the per-shard route: forced on one card, the
+    default over several."""
+    from ccrs_tpu_torch.solve import lm
+
+    with lm.shard_graphs(cards == "one card"):
+        return solve(m)
+
+
+SHARD_SOLVES = ("make_ba_solver", "multi_ba_sharded", "multi_ba_sharded_mixed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", ["one card", "every card"])
+@pytest.mark.parametrize("name", SHARD_SOLVES)
+def test_per_shard_graphs_equal_the_eager_sharded_route(card, name, cards):
+    """The per-shard route (one graph per device and phase, the copies
+    between them, one host read per chunk) against the eager sharded
+    route (``graphs.eager()``) on the same mesh: theta, extrinsics, poses,
+    cost and iterations equal bit for bit; every solve ran on the
+    per-shard route, reading the stop flag once per chunk; a second solve
+    of the same shape captures nothing and gives the same bits."""
+    from ccrs_tpu_torch import graphs as core
+    from ccrs_tpu_torch.solve import lm
+
+    m = _shard_mesh(card, cards)
+    solve = _shard_solve(name)
+    with graphs.eager():
+        lm.reset_loop_counts()
+        want = solve(m)
+        eager = lm.loop_counts()
+    lm.reset_loop_counts()
+    got = _per_shard(solve, m, cards)
+    counts = lm.loop_counts()
+    core.reset_counts()
+    again = _per_shard(solve, m, cards)
+    second = core.counts()
+    assert eager["routes"]["eager"] == counts["routes"]["shards"] == counts["solves"] > 0
+    assert counts["iters"] == eager["iters"]
+    assert counts["chunks"] * lm.CHUNK_ITERS - counts["masked"] == counts["iters"]
+    assert second["captures"] == 0 and second["replays"] > 0, second
+    assert _result_bytes(got) == _result_bytes(want) == _result_bytes(again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", ["one card", "every card"])
+def test_per_shard_copies_wait_for_delayed_sources(card, cards, monkeypatch):
+    """Every graph replay of the per-shard route queued behind a sleep
+    kernel on its device's stream (about 10 ms), so that each copy's
+    source lands long after the host queued the copy and the receiving
+    phase: the joint solve still equals the eager sharded route bit for
+    bit.  A phase that read its receive buffer before the copy landed
+    would read the previous iteration's values.  (Over two shards of one
+    card every phase and copy shares one stream; over several cards the
+    copies order the source's and the receiver's streams.)"""
+    from ccrs_tpu_torch import graphs as core
+
+    m = _shard_mesh(card, cards)
+    solve = _shard_solve("multi_ba_sharded")
+    with graphs.eager():
+        want = solve(m)
+    _per_shard(solve, m, cards)  # captured
+    real = core.Graph.replay
+
+    def delayed(self):
+        with torch.cuda.device((self.inputs or self.bound)[0].device):
+            torch.cuda._sleep(20_000_000)
+        return real(self)
+
+    monkeypatch.setattr(core.Graph, "replay", delayed)
+    got = _per_shard(solve, m, cards)
+    assert _result_bytes(got) == _result_bytes(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", ["one card", "every card"])
+def test_per_shard_graphs_stay_bounded_per_card(card, cards):
+    """The per-shard route on ``SHAPES_KEPT`` + 2 shapes in turn (one
+    board corner fewer each): each card holds the shard phases' graphs of
+    the ``SHAPES_KEPT`` shapes solved last and no more, and the first
+    device's four phase graphs once (their buffers do not depend on the
+    corner count, so every shape shares them); the shape solved last
+    replays without a capture, the one solved first captures its shard
+    graphs again; every result equals its eager solve bit for bit."""
+    from ccrs_tpu_torch import graphs as core
+    from ccrs_tpu_torch.models.projections import project_eucm
+    from ccrs_tpu_torch.parallel import mesh
+    from ccrs_tpu_torch.solve import lm
+
+    m = _shard_mesh(card, cards)
+    n = core.SHAPES_KEPT
+    board, batch, poses = _calib_problem(8 * len(m), 9, "cpu")
+    full = _ba_args(batch, poses, board, "cuda")
+    problems = []
+    for i in range(n + 2):
+        keep = board.n_corners - i
+        cut = (full[2][:keep], full[3][:, :keep], full[4][:, :keep])
+        problems.append(full[:2] + tuple(t.contiguous() for t in cut) + full[5:])
+    solve = mesh.make_ba_solver(project_eucm, m)
+    with graphs.eager():
+        wants = [solve(*a) for a in problems]
+    ph = lm._BA_PHASES
+    shard_phases, first_phases = {ph.system, ph.trial, ph.cost0}, {ph.solve, ph.update,
+                                                                  ph.start, ph.scalars}
+    devices = [torch.empty(0, device=d).device for d in m]
+
+    def held(phases):
+        per = {}
+        for k in core._cache:
+            if k[0] in phases:
+                per[k[2]] = per.get(k[2], 0) + 1
+        return per
+
+    core.reset()
+    for i, args in enumerate(problems):
+        got = _per_shard(lambda _: solve(*args), m, cards)
+        assert _result_bytes(got) == _result_bytes(wants[i]), i
+        want = {}
+        for d in devices:
+            want[d] = want.get(d, 0) + 3 * min(i + 1, n)
+        assert held(shard_phases) == want, i
+        assert held(first_phases) == {devices[0]: 4}, i
+    for i, captures in ((n + 1, 0), (0, 3 * len(m))):
+        core.reset_counts()
+        got = _per_shard(lambda _: solve(*problems[i]), m, cards)
+        assert _result_bytes(got) == _result_bytes(wants[i])
         assert core.counts()["captures"] == captures, i
     core.reset()
