@@ -1,5 +1,6 @@
 """Dense frame-feature batches: the detector -> optimizer contract
-(copy of ``ccrs_tpu/calib/frames.py``; numpy only).
+(copy of ``ccrs_tpu/calib/frames.py``, plus a stage timer; the arrays are
+numpy, the timer is ``utils.profiling``, which imports torch).
 
 Replacement for the reference's
 ``FrameFeature { time_ns, img_w_h, features: HashMap<corner_id, (p2d,p3d)> }``
@@ -21,6 +22,7 @@ import dataclasses
 import numpy as np
 
 from ..board import Board
+from ..utils.profiling import stage
 
 MIN_CORNERS = 24  # src/data_loader.rs:15
 
@@ -83,20 +85,22 @@ class FrameBatch:
 
         Corner id = tag_id*4 + corner (src/data_loader.rs:49); ids outside
         the board are dropped; frames with < min_corners get an all-false
-        row (the reference's None frames).
+        row (the reference's None frames).  Runs as the stage
+        ``calib/frames``.
         """
         F = len(detections)
         N = board.n_corners
         p2d = np.zeros((F, N, 2), np.float64)
         mask = np.zeros((F, N), bool)
-        for f, det in enumerate(detections):
-            for tag_id, corners in det.items():
-                for c in range(4):
-                    cid = int(tag_id) * 4 + c
-                    idx = cid - board.first_corner_id
-                    if 0 <= idx < N:
-                        p2d[f, idx] = corners[c]
-                        mask[f, idx] = True
-            if mask[f].sum() < min_corners:
-                mask[f] = False
+        with stage("calib/frames"):
+            for f, det in enumerate(detections):
+                for tag_id, corners in det.items():
+                    for c in range(4):
+                        cid = int(tag_id) * 4 + c
+                        idx = cid - board.first_corner_id
+                        if 0 <= idx < N:
+                            p2d[f, idx] = corners[c]
+                            mask[f, idx] = True
+                if mask[f].sum() < min_corners:
+                    mask[f] = False
         return FrameBatch(np.asarray(times_ns, np.int64), p2d, mask, width, height)

@@ -39,6 +39,7 @@ from ..solve.lm import (
     reduce_params,
 )
 from ..types import RvecTvec
+from ..utils.profiling import stage
 from .frames import FrameBatch
 from .single import build_bounds, check_solver, disabled_free_mask
 
@@ -50,32 +51,34 @@ F64 = torch.float64
 def init_camera_extrinsic(
     cam_rtvecs: List[Dict[int, RvecTvec]], device="cuda"
 ) -> List[RvecTvec]:
-    """Estimate T_cam_i<-cam0 from frames seen by both cameras."""
-    out = [RvecTvec.identity()]
-    for cam_i in range(1, len(cam_rtvecs)):
-        common = sorted(set(cam_rtvecs[0]) & set(cam_rtvecs[cam_i]))
-        if not common:
-            log.warning("cam%d shares no frames with cam0; identity extrinsic", cam_i)
-            out.append(RvecTvec.identity())
-            continue
+    """Estimate T_cam_i<-cam0 from frames seen by both cameras (the stage
+    ``joint/init-extrinsic``)."""
+    with stage("joint/init-extrinsic"):
+        out = [RvecTvec.identity()]
+        for cam_i in range(1, len(cam_rtvecs)):
+            common = sorted(set(cam_rtvecs[0]) & set(cam_rtvecs[cam_i]))
+            if not common:
+                log.warning("cam%d shares no frames with cam0; identity extrinsic", cam_i)
+                out.append(RvecTvec.identity())
+                continue
 
-        def stack(rts):
-            rows = [np.concatenate([rts[f].rvec, rts[f].tvec]) for f in common]
-            return torch.as_tensor(np.stack(rows), dtype=F64, device=device)
+            def stack(rts):
+                rows = [np.concatenate([rts[f].rvec, rts[f].tvec]) for f in common]
+                return torch.as_tensor(np.stack(rows), dtype=F64, device=device)
 
-        t0b, tib = stack(cam_rtvecs[0]), stack(cam_rtvecs[cam_i])
-        # init from the first common frame: T_i_0 = T_i_b * T_0_b^-1
-        init = cam_rtvecs[cam_i][common[0]].compose(cam_rtvecs[0][common[0]].inverse())
-        x0 = torch.as_tensor(
-            np.concatenate([init.rvec, init.tvec]), dtype=F64, device=device
-        )
-        r_inv, t_inv = se3.inverse(tib[:, :3], tib[:, 3:])
-        x, _, _ = lm_solve(_extrinsic_residual, x0, opts=LMOptions(huber_delta=0.5),
-                           data=(t0b, r_inv, t_inv))
-        x = x.cpu().numpy()
-        log.info("extrinsic cam%d<-cam0: rvec %s tvec %s", cam_i, x[:3], x[3:])
-        out.append(RvecTvec(x[:3], x[3:]))
-    return out
+            t0b, tib = stack(cam_rtvecs[0]), stack(cam_rtvecs[cam_i])
+            # init from the first common frame: T_i_0 = T_i_b * T_0_b^-1
+            init = cam_rtvecs[cam_i][common[0]].compose(cam_rtvecs[0][common[0]].inverse())
+            x0 = torch.as_tensor(
+                np.concatenate([init.rvec, init.tvec]), dtype=F64, device=device
+            )
+            r_inv, t_inv = se3.inverse(tib[:, :3], tib[:, 3:])
+            x, _, _ = lm_solve(_extrinsic_residual, x0, opts=LMOptions(huber_delta=0.5),
+                               data=(t0b, r_inv, t_inv))
+            x = x.cpu().numpy()
+            log.info("extrinsic cam%d<-cam0: rvec %s tvec %s", cam_i, x[:3], x[3:])
+            out.append(RvecTvec(x[:3], x[3:]))
+        return out
 
 
 def _extrinsic_residual(x, t0b, r_inv, t_inv):
@@ -110,8 +113,52 @@ def calib_all_camera_with_extrinsics(
     Returns (intrinsics, T_i_0 per camera, board poses {frame: T_0_b}) or
     None if the solve diverges (the caller falls back to per-camera
     results, bin/camera_calibration.rs:320-343).
+
+    Runs as the stage ``joint/ba``; its host arrays and their uploads, up
+    to the solver call, as ``joint/assemble``.
     """
-    mixed = check_solver(solver) == "mixed"
+    with stage("joint/ba"):
+        mixed = check_solver(solver) == "mixed"
+        with stage("joint/assemble"):
+            problem = _assemble(board, cameras, t_cam_i_0, cam_rtvecs, batches, xy_same_focal,
+                                disabled_distortions, cam0_fixed_focal, device)
+        if problem is None:
+            return None
+        args, frame_valid = problem
+        F = len(frame_valid)
+        mesh = mesh_for(device)
+        if len(mesh) > 1 and F >= len(mesh):
+            # frame-sharded joint solve: one reduced system per LM iteration
+            sharded = multi_ba_sharded_mixed if mixed else multi_ba_sharded
+            res = sharded(*args, one_focal=xy_same_focal, huber_delta=1.0, mesh=mesh)
+        else:
+            single = ba_solve_multi_mixed if mixed else ba_solve_multi
+            res = single(*args, one_focal=xy_same_focal, huber_delta=1.0)
+        if not np.isfinite(float(res.cost)):
+            return None
+
+        intrinsics = []
+        t_i_0_out = []
+        ext = res.ext.cpu().numpy()
+        for c in range(len(cameras)):
+            m = cameras[c].copy()
+            m.set_params(expand_theta(res.theta[c], xy_same_focal).cpu().numpy())
+            intrinsics.append(m)
+            t_i_0_out.append(
+                RvecTvec.identity() if c == 0 else RvecTvec(ext[c, :3], ext[c, 3:])
+            )
+        poses = res.poses.cpu().numpy()
+        board_rtvecs = {
+            int(f): RvecTvec(poses[f, :3], poses[f, 3:])
+            for f in np.flatnonzero(frame_valid > 0)
+        }
+        return intrinsics, t_i_0_out, board_rtvecs
+
+
+def _assemble(board, cameras, t_cam_i_0, cam_rtvecs, batches, xy_same_focal,
+              disabled_distortions, cam0_fixed_focal, device):
+    """The joint problem's solver arguments on ``device`` and the (F,)
+    frame-valid mask, or None when no camera has a board pose."""
     C = len(cameras)
     F = max(b.n_frames for b in batches)
     N = board.n_corners
@@ -173,30 +220,4 @@ def calib_all_camera_with_extrinsics(
         project_fn(name), t(theta0), t(ext0), t(poses0), t(board.p3d), t(p2d),
         t(w), t(lo), t(hi), t(free), t(cam_frame_valid), t(frame_valid),
     )
-    mesh = mesh_for(device)
-    if len(mesh) > 1 and F >= len(mesh):
-        # frame-sharded joint solve: one reduced system per LM iteration
-        sharded = multi_ba_sharded_mixed if mixed else multi_ba_sharded
-        res = sharded(*args, one_focal=xy_same_focal, huber_delta=1.0, mesh=mesh)
-    else:
-        single = ba_solve_multi_mixed if mixed else ba_solve_multi
-        res = single(*args, one_focal=xy_same_focal, huber_delta=1.0)
-    if not np.isfinite(float(res.cost)):
-        return None
-
-    intrinsics = []
-    t_i_0_out = []
-    ext = res.ext.cpu().numpy()
-    for c in range(C):
-        m = cameras[c].copy()
-        m.set_params(expand_theta(res.theta[c], xy_same_focal).cpu().numpy())
-        intrinsics.append(m)
-        t_i_0_out.append(
-            RvecTvec.identity() if c == 0 else RvecTvec(ext[c, :3], ext[c, 3:])
-        )
-    poses = res.poses.cpu().numpy()
-    board_rtvecs = {
-        int(f): RvecTvec(poses[f, :3], poses[f, 3:])
-        for f in np.flatnonzero(frame_valid > 0)
-    }
-    return intrinsics, t_i_0_out, board_rtvecs
+    return args, frame_valid

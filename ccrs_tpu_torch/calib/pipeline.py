@@ -30,7 +30,7 @@ import torch
 from ..board import Board
 from ..models import GenericModel
 from ..types import CalibParams, RvecTvec
-from ..utils.profiling import stage, stage_prefix
+from ..utils.profiling import count, stage, stage_prefix
 from .convert import convert_model
 from .frames import FrameBatch
 from .initialize import find_best_two_frames, try_init_camera
@@ -127,7 +127,8 @@ def init_and_calibrate_one_camera(
             )
         return _gate_result(board, batch, result, out)
 
-    frame0, frame1 = find_best_two_frames(batch, random_pick_two_frames, rng)
+    with stage("calib/pick-frames"):
+        frame0, frame1 = find_best_two_frames(batch, random_pick_two_frames, rng)
     log.info("init frames: %d, %d", frame0, frame1)
     out["init_frames"] = (frame0, frame1)
 
@@ -150,7 +151,8 @@ def init_and_calibrate_one_camera(
                         0, 2**31 - 1, (), generator=generator, device=generator.device
                     )
                     rng = np.random.default_rng(int(seed))
-                frame0, frame1 = find_best_two_frames(batch, True, rng)
+                with stage("calib/pick-frames"):
+                    frame0, frame1 = find_best_two_frames(batch, True, rng)
                 log.info("re-picked init frames: %d, %d", frame0, frame1)
     if initial_camera is None or initial_camera.params[0] == 0.0:
         log.warning("calibration failed: could not initialize UCM")
@@ -232,38 +234,50 @@ def calibrate_camera_with_retries(
     but the requested model cannot represent the data), the best gated
     attempt is returned with a warning, as the reference emits its result
     and lets report.txt carry the bad numbers.  Raises only when no trial
-    produced a solution at all."""
-    rng = np.random.default_rng(seed)
-    best_gated = None
-    warm = warm_provider() if warm_provider is not None else None
-    calibrate_camera_with_retries.last_warm_offered = warm is not None
-    calibrate_camera_with_retries.last_spec_used = False
-    trials = ([None] if warm is not None else []) + list(range(MAX_TRIALS))
-    for trial in trials:
-        attempt: dict = {}
-        result = init_and_calibrate_one_camera(
-            board, batch, target_model, calib_params, generator,
-            random_pick_two_frames=trial is not None and trial > 0, rng=rng,
-            warm=warm if trial is None else None, out=attempt, device=device,
-            solver=solver,
-        )
-        if result is not None:
-            calibrate_camera_with_retries.last_spec_used = trial is None
-            calibrate_camera_with_retries.last_init_frames = attempt.get("init_frames")
-            return result
-        gated = attempt.get("gated")
-        if gated is not None and (best_gated is None or gated[0] < best_gated[0]):
-            # keep the trial's init frames with the attempt: the keyframe
-            # markers must describe the attempt actually returned
-            best_gated = gated + (attempt.get("init_frames"),)
-    if best_gated is not None:
-        log.warning(
-            "all %d trials failed the sanity gate; returning the best "
-            "attempt (median %.2f px)", MAX_TRIALS, best_gated[0],
-        )
-        calibrate_camera_with_retries.last_init_frames = best_gated[2]
-        return best_gated[1]
-    raise RuntimeError(f"Failed to calibrate camera after {MAX_TRIALS} trials")
+    produced a solution at all.
+
+    Runs as the stage ``calib/camera`` and counts ``calib/cameras``,
+    ``calib/warm-offered`` and ``calib/warm-used``."""
+    with stage("calib/camera"):
+        count("calib/cameras")
+        rng = np.random.default_rng(seed)
+        best_gated = None
+        warm = None
+        if warm_provider is not None:
+            with stage("calib/spec-wait"):
+                warm = warm_provider()
+        calibrate_camera_with_retries.last_warm_offered = warm is not None
+        calibrate_camera_with_retries.last_spec_used = False
+        if warm is not None:
+            count("calib/warm-offered")
+        trials = ([None] if warm is not None else []) + list(range(MAX_TRIALS))
+        for trial in trials:
+            attempt: dict = {}
+            result = init_and_calibrate_one_camera(
+                board, batch, target_model, calib_params, generator,
+                random_pick_two_frames=trial is not None and trial > 0, rng=rng,
+                warm=warm if trial is None else None, out=attempt, device=device,
+                solver=solver,
+            )
+            if result is not None:
+                calibrate_camera_with_retries.last_spec_used = trial is None
+                if trial is None:
+                    count("calib/warm-used")
+                calibrate_camera_with_retries.last_init_frames = attempt.get("init_frames")
+                return result
+            gated = attempt.get("gated")
+            if gated is not None and (best_gated is None or gated[0] < best_gated[0]):
+                # keep the trial's init frames with the attempt: the keyframe
+                # markers must describe the attempt actually returned
+                best_gated = gated + (attempt.get("init_frames"),)
+        if best_gated is not None:
+            log.warning(
+                "all %d trials failed the sanity gate; returning the best "
+                "attempt (median %.2f px)", MAX_TRIALS, best_gated[0],
+            )
+            calibrate_camera_with_retries.last_init_frames = best_gated[2]
+            return best_gated[1]
+        raise RuntimeError(f"Failed to calibrate camera after {MAX_TRIALS} trials")
 
 
 # per-RETURN metadata of the ladder: the keyframes (two init frames) of the

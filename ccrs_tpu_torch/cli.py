@@ -308,7 +308,8 @@ def calibrate_all_cameras(args, board, batches, recorder, generators, device,
     for cam_idx, batch in enumerate(batches):
         warm_provider = _warm_adapter((specs or {}).get(cam_idx), batch)
         try:
-            with stage(f"cam{cam_idx}/calibrate"):
+            # the ladder's stages and counters as cam{i}/calib/...
+            with stage_prefix(f"cam{cam_idx}/"):
                 model, rtvecs = calibrate_camera_with_retries(
                     board, batch, zeros_like_model(args.model),
                     _cam_calib_params(args, cam_idx), generators[cam_idx],
@@ -347,18 +348,17 @@ def save_and_validate_results(
     args, output_folder, board, batches, intrinsics, cam_rtvecs, t_cam_i_0,
     recorder, device="cuda",
 ):
-    with stage("joint_ba"):
-        joint = calib_all_camera_with_extrinsics(
-            board,
-            intrinsics,
-            t_cam_i_0,
-            cam_rtvecs,
-            batches,
-            xy_same_focal=args.one_focal or args.fixed_focal is not None,
-            disabled_distortions=args.disabled_distortion_num,
-            cam0_fixed_focal=args.fixed_focal is not None,
-            device=device,
-        )
+    joint = calib_all_camera_with_extrinsics(
+        board,
+        intrinsics,
+        t_cam_i_0,
+        cam_rtvecs,
+        batches,
+        xy_same_focal=args.one_focal or args.fixed_focal is not None,
+        disabled_distortions=args.disabled_distortion_num,
+        cam0_fixed_focal=args.fixed_focal is not None,
+        device=device,
+    )
     rep_rms = []
     if joint is not None:
         cam_models, t_i_0, board_rtvecs = joint
@@ -440,8 +440,7 @@ def main(argv=None):
         intrinsics, cam_rtvecs = calibrate_all_cameras(
             args, board, batches, recorder, generators, device, specs
         )
-        with stage("joint_ba"):
-            t_cam_i_0 = init_camera_extrinsic(cam_rtvecs, device=device)
+        t_cam_i_0 = init_camera_extrinsic(cam_rtvecs, device=device)
         for t in t_cam_i_0:
             print(f"r {t.rvec} t {t.tvec}")
         save_and_validate_results(

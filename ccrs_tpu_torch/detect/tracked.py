@@ -44,7 +44,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..utils.profiling import stage
+from ..utils.profiling import count, stage
 from . import graphs
 from .audit import AuditPolicy, RowLayout
 from .track import (
@@ -211,6 +211,17 @@ def _replay_waves(det, dev_all, board_xy, first, frame_of, frame_t, act, act_t, 
 
 
 def _detect_tracked(det, dev_all, board, n_valid: int):
+    """Wave tracking over one (B, H, W) batch on its device (``_track``),
+    as the stage ``detect/tracked``; counts the valid and the cold-swept
+    frames (``detect/frames``, ``detect/cold-frames``)."""
+    with stage("detect/tracked"):
+        results = _track(det, dev_all, board, n_valid)
+    count("detect/frames", n_valid)
+    count("detect/cold-frames", det.stats["cold_frames"])
+    return results
+
+
+def _track(det, dev_all, board, n_valid: int):
     """Wave tracking over one (B, H, W) batch on its device.
 
     Cold-detect anchor TRIPLES every ``cold_every`` frames (a triple gives
@@ -387,23 +398,6 @@ def _detect_tracked(det, dev_all, board, n_valid: int):
     elif direct_frames:
         coldres.update(cold_sweep(direct_frames, "detect/track-cold"))
 
-    # row bookkeeping for the repair re-sweeps below
-    layout = RowLayout.empty(B)
-    if Wmax > 0:
-        for r in range(R):
-            fl = [int(frame_of[w, r]) for w in range(Wmax) if act[w, r]]
-            if fl:
-                layout.row_frames[r] = fl
-                for w, f in enumerate(fl):
-                    layout.row_of[f] = r
-                    layout.pos_of[f] = w
-
-    # per-segment expected tag count, from the bracketing cold anchors:
-    # a frame of a partially visible board seeing that many tags is healthy
-    seg_expect = {
-        si: min(anchor_count(pL), anchor_count(pR)) for si, (pL, pR) in enumerate(segs)
-    }
-
     # ---- results + post-hoc audit/repair loop ---------------------
     results: List[Dict[int, np.ndarray]] = [dict() for _ in range(B)]
 
@@ -417,8 +411,26 @@ def _detect_tracked(det, dev_all, board, n_valid: int):
         else:
             results[f] = tracked
 
-    for f in range(B):
-        write_result(f)
+    with stage("detect/results"):
+        # row bookkeeping for the repair re-sweeps below
+        layout = RowLayout.empty(B)
+        if Wmax > 0:
+            for r in range(R):
+                fl = [int(frame_of[w, r]) for w in range(Wmax) if act[w, r]]
+                if fl:
+                    layout.row_frames[r] = fl
+                    for w, f in enumerate(fl):
+                        layout.row_of[f] = r
+                        layout.pos_of[f] = w
+
+        # per-segment expected tag count, from the bracketing cold anchors:
+        # a frame of a partially visible board seeing that many tags is healthy
+        seg_expect = {
+            si: min(anchor_count(pL), anchor_count(pR)) for si, (pL, pR) in enumerate(segs)
+        }
+
+        for f in range(B):
+            write_result(f)
 
     # Provisional-results hook: detections are complete up to the audit
     # corrections from here on, so a caller's callback (the speculative
@@ -475,25 +487,27 @@ def _detect_tracked(det, dev_all, board, n_valid: int):
     in_cold_pad = set(range(n_valid, B))
     first_round = True
     while True:
-        fails_sets = [fails_at(f) for f in range(B)]
-        acc_counts = g_acc.sum(axis=1)
-        plan = policy.plan_round(fails_sets, acc_counts, set(coldres) | in_cold_pad)
-        if first_round:
-            first_round = False
-            if plan is not None:
-                # audits will run: start the speculation now
-                fire_provisional()
+        with stage("detect/audit-plan"):
+            fails_sets = [fails_at(f) for f in range(B)]
+            acc_counts = g_acc.sum(axis=1)
+            plan = policy.plan_round(fails_sets, acc_counts, set(coldres) | in_cold_pad)
+            if first_round:
+                first_round = False
+                if plan is not None:
+                    # audits will run: start the speculation now
+                    fire_provisional()
         if plan is None:
             break
         lead = plan.lead
         det.stats["trigger_frames"] += len(lead)
         coldres.update(cold_sweep(lead, "detect/track-audit"))
-        cold_tags = {f: {int(t) - first for t in coldres[f]} for f in lead}
-        added = {f: any(t not in results[f] for t in coldres[f]) for f in lead}
-        improved = policy.record_outcome(plan, fails_sets, cold_tags, added)
-        for f in lead:
-            write_result(f)
-        jobs = policy.resweep_jobs(improved, plan.no_resweep)
+        with stage("detect/audit-plan"):
+            cold_tags = {f: {int(t) - first for t in coldres[f]} for f in lead}
+            added = {f: any(t not in results[f] for t in coldres[f]) for f in lead}
+            improved = policy.record_outcome(plan, fails_sets, cold_tags, added)
+            for f in lead:
+                write_result(f)
+            jobs = policy.resweep_jobs(improved, plan.no_resweep)
         if jobs:
             det.stats["resweeps"] = det.stats.get("resweeps", 0) + len(jobs)
             run_resweeps(jobs)
