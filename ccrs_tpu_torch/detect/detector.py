@@ -7,8 +7,10 @@ the card work at the same time:
   phase 0: per chunk, queue the frame gather and the threshold front-end
     (the CUDA kernel on a CUDA tensor), and start the packed bitmap's copy
     to pinned host memory right behind it;
-  phase 1 (per chunk): read the bitmap, run the native C++ quad extraction
-    on the host, queue the refine + unsharp + decode and start the copy of
+  phase 1 (per chunk): wait for the bitmap's copy, hand the packed bits to
+    the native quad stage (``quads.extract_quad_stage``: one C++ call,
+    OpenMP over frames, that extracts both erosion levels of each frame and
+    merges them), queue the refine + unsharp + decode and start the copy of
     its outputs: the card decodes chunk k while the host extracts the quads
     of chunk k+1;
   phase 2 (per chunk, one chunk behind phase 1): read the decode outputs,
@@ -22,7 +24,9 @@ then alive for two chunks at most, whatever the batch size.
 
 Each step runs under a stage timer (``utils/profiling.py``):
 ``detect/threshold``, ``detect/quadproc``, ``detect/dispatch``,
-``detect/decode`` and ``detect/assist``.  Uploads go through pinned
+``detect/decode`` and ``detect/assist``; the quad stage counts its frames
+(``detect/quad-frames``) and those that ran the second erosion level
+(``detect/quad-level2``).  Uploads go through pinned
 memory without blocking; a read waits on the event recorded after its own
 copy, never on the whole stream.
 
@@ -63,13 +67,13 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import FrameShards, mesh_for, shard_frames
-from ..utils.profiling import stage
+from ..utils.profiling import count, stage
 from . import graphs
 from .assist import _BUCKET, assist_candidates, assist_merge
 from .decode import refine_decode_fused_dense
 from .families import TagFamily, get_family
-from .quads import MAX_QUADS, extract_quads_batch
-from .threshold import TILE, threshold_front
+from .quads import MAX_QUADS, extract_quad_stage
+from .threshold import threshold_front
 
 #: decode outputs the results are built from, and those the assist merge reads
 _DECODE_KEYS = ("tag_id", "hamming", "valid", "corners")
@@ -201,19 +205,6 @@ def _anchor_starts(B: int, K: int, p0: int) -> List[int]:
     return starts
 
 
-def _dilate_white_host(binary: np.ndarray) -> np.ndarray:
-    """3x3 white dilation (= one more black erosion) of a (B, H, W) {0,1}
-    uint8 batch on the host — reduce_window(OR, 3x3, SAME) with False
-    padding, computed from the already-downloaded level-1 bitmap."""
-    out = binary.copy()
-    out[:, 1:, :] |= binary[:, :-1, :]
-    out[:, :-1, :] |= binary[:, 1:, :]
-    col = out.copy()
-    out[:, :, 1:] |= col[:, :, :-1]
-    out[:, :, :-1] |= col[:, :, 1:]
-    return out
-
-
 def _to_gray_f32(img: np.ndarray) -> np.ndarray:
     """Any common image format -> float32 grayscale on a 0..255 scale."""
     img = np.asarray(img)
@@ -229,42 +220,6 @@ def _to_gray_f32(img: np.ndarray) -> np.ndarray:
         if img.size and img.max() <= 1.5:  # 0..1 floats
             img = img * 255.0
     return img
-
-
-def _expand_quads(quads, px):
-    """Push each corner of (B, K, 4, 2) quads away from its quad center
-    by ``px`` (erosion-bias pre-compensation of the scale-2 path)."""
-    cen = quads.mean(axis=2, keepdims=True)
-    d = quads - cen
-    n = np.linalg.norm(d, axis=-1, keepdims=True)
-    return quads + d / np.maximum(n, 1e-6) * px
-
-
-def _dedup_levels(q1, c1, q2, c2, max_quads):
-    """Merge the two erosion levels' quads, dropping level-2 quads whose
-    center falls within 0.7x an existing level-1 quad's mean radius
-    (duplicates of the same tag blob), vectorized over the batch."""
-    half = q1.shape[1]
-    k = np.arange(half)[None, :]
-    m1 = k < c1[:, None]  # (C, half) level-1 validity
-    m2 = k < c2[:, None]
-    cen1 = q1.mean(axis=2)  # (C, half, 2)
-    rad1 = np.linalg.norm(q1 - cen1[:, :, None, :], axis=-1).mean(axis=2)
-    cen2 = q2.mean(axis=2)
-    d = np.linalg.norm(cen1[:, None, :, :] - cen2[:, :, None, :], axis=-1)
-    dup = (d < 0.7 * rad1[:, None, :]) & m1[:, None, :]
-    keep2 = m2 & ~dup.any(axis=2)
-    # level-1 rows first, then surviving level-2 rows: a stable argsort on
-    # ~valid compacts each frame's winners to the front
-    quads_all = np.concatenate([q1, q2], axis=1)  # (C, 2*half, 4, 2)
-    valid_all = np.concatenate([m1, keep2], axis=1)
-    order = np.argsort(~valid_all, axis=1, kind="stable")
-    quads_sorted = np.take_along_axis(quads_all, order[:, :, None, None], axis=1)
-    counts = np.minimum(valid_all.sum(axis=1), max_quads).astype(np.int32)
-    quads = np.zeros((q1.shape[0], max_quads, 4, 2), np.float32)
-    m = min(max_quads, 2 * half)
-    quads[:, :m] = quads_sorted[:, :m]
-    return quads, counts
 
 
 class TagDetector:
@@ -437,11 +392,8 @@ class TagDetector:
             for x in xs:
                 frame[y : y + side, x : x + side] = 30
         part = _to_device(np.stack([frame] * B), dev)
-        sH, sW = height // scale, width // scale
-        wmul = TILE * 8 // np.gcd(TILE, 8)
         packed = _Fetch(threshold_front(part, scale)).get()
-        b1 = np.unpackbits(packed, axis=-1, count=sW + ((-sW) % wmul))[:, :sH, :sW]
-        self._extract_quads(b1, board, scale)
+        self._extract_quads(packed, board, scale, height // scale, width // scale)
         self._prewarm_calls(part, xs, ys, side, board, tracked)
         if dev.type == "cuda":
             # this thread's stream, not the device: a device-wide
@@ -490,55 +442,13 @@ class TagDetector:
             outs[1].cpu()
 
     # ----------------------------------------------------- shared helpers
-    def _extract_quads(self, b1, board, scale):
-        """Native quad extraction over a (C, sH, sW) binary batch: both
-        erosion levels, the level-2 need heuristic, scale compensation and
-        dedup.  Returns (quads (C, max_quads, 4, 2) full-res px, counts)."""
-        half = self.max_quads // 2
-        q1, c1 = extract_quads_batch(b1, max_quads=half)
-        # Level 2 splits tags that the first erosion left bridged into
-        # crosses, a large-tag phenomenon.  A frame skips it only when
-        # level 1 already yielded >= n_tags candidates AND every candidate
-        # is small-tag sized (clutter inflates the count alone).
-        q2 = np.zeros_like(q1)
-        c2 = np.zeros_like(c1)
-        if board is None:
-            need = np.arange(b1.shape[0])
-        else:
-            big_area = (100.0 / scale) ** 2  # ~100 px tag side
-            need_l = []
-            for b in range(b1.shape[0]):
-                n1 = int(c1[b])
-                if n1 < board.n_tags:
-                    need_l.append(b)
-                    continue
-                x = q1[b, :n1, :, 0]
-                y = q1[b, :n1, :, 1]
-                a2 = np.einsum(
-                    "qn,qn->q", x, np.roll(y, -1, 1)
-                ) - np.einsum("qn,qn->q", np.roll(x, -1, 1), y)
-                if 0.5 * np.abs(a2).max() >= big_area:
-                    need_l.append(b)
-            need = np.asarray(need_l, np.int64)
-        if need.size:
-            q2n, c2n = extract_quads_batch(
-                _dilate_white_host(b1[need]), max_quads=half
-            )
-            q2[need] = q2n
-            c2[need] = c2n
-        if scale == 2:
-            # erosion + pooling bias corners ~4.5 px inward at pyramid
-            # resolution (~2 px more for level 2): pre-expand along the
-            # outward diagonal so the subpixel refinement starts inside
-            # its capture radius
-            q1 = _expand_quads(q1, 1.5)
-            q2 = _expand_quads(q2, 2.75)
-        quads, counts = _dedup_levels(q1, c1, q2, c2, self.max_quads)
-        if scale == 2:
-            # pyramid pixel (r, c) covers full-res [2r, 2r+1] x [2c, 2c+1];
-            # its center sits at 2x + 0.5
-            quads = quads * 2.0 + 0.5
-        return quads, counts
+    def _extract_quads(self, packed, board, scale, height, width):
+        """The quad stage of a chunk: the (C, sHp, sWp/8) packed bitmaps of
+        frames of (height, width) at ``scale`` through
+        ``quads.extract_quad_stage``.  Returns (quads (C, max_quads, 4, 2)
+        full-res px, counts, frames that ran the second erosion level)."""
+        return extract_quad_stage(packed, height, width, scale,
+                                  None if board is None else board.n_tags, self.max_quads)
 
     def _dispatch_decode(self, dev_chunk, quads, counts, slot: int = 0, board=None):
         """Upload the (n, K) quad buffer (``_to_device``), queue the dense
@@ -718,8 +628,6 @@ class TagDetector:
         # refinement and decode always sample the full-resolution frames
         scale = 2 if max(H, W) >= self.pyramid_min_side else 1
         sH, sW = H // scale, W // scale
-        wmul = TILE * 8 // np.gcd(TILE, 8)
-        pw = sW + ((-sW) % wmul)  # packed width after white padding
 
         # Phase 0: queue every chunk's gather and threshold, each bitmap's
         # host copy right behind its own threshold.  A gathered chunk's
@@ -748,9 +656,10 @@ class TagDetector:
             with stage("detect/threshold"):
                 packed = bitmaps[ci].get()  # (n, sHp, sWp/8)
                 bitmaps[ci] = None
-                b1 = np.unpackbits(packed, axis=-1, count=pw)[:, :sH, :sW]
             with stage("detect/quadproc"):
-                quads, counts = self._extract_quads(b1, board, scale)
+                quads, counts, level2 = self._extract_quads(packed, board, scale, sH, sW)
+                count("detect/quad-frames", len(counts))
+                count("detect/quad-level2", level2)
             with stage("detect/dispatch"):
                 # two graph instances in turn: chunk ci's assist (phase 2,
                 # queued after chunk ci+1's decode) reads its own maps

@@ -97,7 +97,8 @@ def adaptive_threshold_packed2(
     tag scale: at ~140 px tags they survive a single erosion and merge the
     tag into a cross, so quad extraction can run on both levels.  (The
     detector computes level 1 on the host from the downloaded level-0
-    bitmap instead, ``detector._dilate_white_host``.)"""
+    bitmap instead, inside the native quad stage,
+    ``quads.extract_quad_stage``.)"""
     b1 = adaptive_threshold(images, tile, min_contrast, separate=True)
     b2 = (F.max_pool2d(b1[:, None].to(torch.float32), 3, stride=1, padding=1)[:, 0] > 0).to(
         torch.uint8

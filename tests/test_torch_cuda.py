@@ -8,7 +8,9 @@ the card when one is visible) against the unsharded ones, the warm-up
 solvers on the card against the CPU, and the cold detector's chunk
 pipeline against the same chunks detected one per call, bit for bit, also
 with the stream held back by sleep kernels, and its peak memory flat in
-the batch size; the sampling branch's constants made once per device, and
+the batch size; the native quad stage on the kernel's bitmaps against the
+numpy composition it replaced, bit for bit, alone and inside a tracked
+detection; the sampling branch's constants made once per device, and
 a 64-frame chunk through the matmul branch without a synchronizing call;
 the captured CUDA graphs of the detect path (``detect/graphs.py``, the
 card's default) against eager, bit for bit, a capture that synchronizes
@@ -593,6 +595,95 @@ def test_cold_pipeline_on_a_delayed_card_gives_the_same_bits(card, audit, monkey
     got = det._detect_batch_cold(frames, board, idx=idx)
     _same_bits(got, want)
     assert sum(len(g) for g in got) > 20 * len(got)
+
+
+def _numpy_quad_stage(b1, board, scale, max_quads):
+    """The quad stage as numpy around two native calls, the composition of
+    the JAX package's ``TagDetector._extract_quads`` (which
+    ``tests/test_torch_quad_stage.py`` holds the native stage to on the
+    CPU): level 1, the level-2 need rule, a 3x3 white dilation, level 2,
+    the scale-2 corner push, the merge, the scale-2 pixel map."""
+    from ccrs_tpu_torch.detect.quads import extract_quads_batch
+
+    half = max_quads // 2
+    q1, c1 = extract_quads_batch(b1, max_quads=half)
+    q2, c2 = np.zeros_like(q1), np.zeros_like(c1)
+    need = []
+    for b in range(b1.shape[0]):
+        n1 = int(c1[b])
+        if board is None or n1 < board.n_tags:
+            need.append(b)
+            continue
+        x, y = q1[b, :n1, :, 0], q1[b, :n1, :, 1]
+        a2 = (np.einsum("qn,qn->q", x, np.roll(y, -1, 1))
+              - np.einsum("qn,qn->q", np.roll(x, -1, 1), y))
+        if 0.5 * np.abs(a2).max() >= (100.0 / scale) ** 2:
+            need.append(b)
+    need = np.asarray(need, np.int64)
+    if need.size:
+        b2 = b1[need].copy()
+        b2[:, 1:, :] |= b1[need][:, :-1, :]
+        b2[:, :-1, :] |= b1[need][:, 1:, :]
+        col = b2.copy()
+        b2[:, :, 1:] |= col[:, :, :-1]
+        b2[:, :, :-1] |= col[:, :, 1:]
+        q2[need], c2[need] = extract_quads_batch(b2, max_quads=half)
+
+    def expand(q, px):
+        d = q - q.mean(axis=2, keepdims=True)
+        return q + d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-6) * px
+
+    if scale == 2:
+        q1, q2 = expand(q1, 1.5), expand(q2, 2.75)
+    k = np.arange(half)[None, :]
+    m1, m2 = k < c1[:, None], k < c2[:, None]
+    cen1, cen2 = q1.mean(axis=2), q2.mean(axis=2)
+    rad1 = np.linalg.norm(q1 - cen1[:, :, None, :], axis=-1).mean(axis=2)
+    d = np.linalg.norm(cen1[:, None, :, :] - cen2[:, :, None, :], axis=-1)
+    keep2 = m2 & ~((d < 0.7 * rad1[:, None, :]) & m1[:, None, :]).any(axis=2)
+    valid = np.concatenate([m1, keep2], axis=1)
+    order = np.argsort(~valid, axis=1, kind="stable")
+    rows = np.take_along_axis(np.concatenate([q1, q2], axis=1), order[:, :, None, None], axis=1)
+    quads = np.zeros((q1.shape[0], max_quads, 4, 2), np.float32)
+    quads[:, : min(max_quads, 2 * half)] = rows[:, :max_quads]
+    counts = np.minimum(valid.sum(axis=1), max_quads).astype(np.int32)
+    if scale == 2:
+        quads = quads * 2.0 + 0.5
+    return quads, counts, int(need.size)
+
+
+@pytest.mark.cuda
+def test_native_quad_stage_equals_the_numpy_composition_on_card_bitmaps(card, monkeypatch):
+    """On the threshold kernel's bitmaps of a rendered 512² sequence the
+    native quad stage gives the numpy composition's quads and counts, bit
+    for bit, with and without a board; and a tracked ``detect_batch`` of
+    the sequence with the numpy composition in the stage's place returns
+    the same bits."""
+    from ccrs_tpu_torch.detect.quads import extract_quad_stage
+
+    frames = _frames(512, 96, noise=1.5, device="cuda")
+    board = create_default_6x6_board()
+    packed = threshold_front_cuda(frames, 1).cpu().numpy()
+    b1 = np.unpackbits(packed, axis=-1)[:, :512, :512]
+    for bd in (board, None):
+        q, c, level2 = extract_quad_stage(packed, 512, 512, 1, None if bd is None else bd.n_tags)
+        rq, rc, rlevel2 = _numpy_quad_stage(b1, bd, 1, q.shape[1])
+        np.testing.assert_array_equal(c, rc)
+        np.testing.assert_array_equal(q.view(np.uint32), rq.view(np.uint32))
+        assert level2 == rlevel2 and (bd is not None or level2 == 96)
+    det = TagDetector("t36h11", shard=False, device=card)
+    got = det.detect_batch(None, board, dev_images=frames)
+    stats = dict(det.stats)
+
+    def numpy_stage(self, packed, board, scale, height, width):
+        bits = np.unpackbits(packed, axis=-1)[:, :height, :width]
+        return _numpy_quad_stage(bits, board, scale, self.max_quads)
+
+    monkeypatch.setattr(TagDetector, "_extract_quads", numpy_stage)
+    ref = TagDetector("t36h11", shard=False, device=card)
+    want = ref.detect_batch(None, board, dev_images=frames)
+    assert ref.stats == stats and stats["cold_frames"] > 0
+    _same_bits(got, want)
 
 
 @pytest.mark.cuda
